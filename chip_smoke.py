@@ -5,10 +5,10 @@
 
 Phases (any failed check raises, so the script exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel of the main path from ev2hands_tpu_torch/csrc with
-     nvcc for sm_90a, timed;
+  2. build every kernel of the port from ev2hands_tpu_torch/csrc with nvcc
+     for sm_90a, one process per source, timed;
   3. the FPS kernel against its plain version on ERPC clouds at B=16, at the
-     three main-path shapes (2048->512, 2048->128, 512->128): equal indices;
+     three serving shapes (2048->512, 2048->128, 512->128): equal indices;
   4. the block-sparse grouping kernel against its plain version on the
      three sa1 scales, inputs from the real preparation at B=16, S=512,
      N=2048, nb=256: max abs diff <= 1e-4; prints each scale's tile activity;
@@ -24,9 +24,27 @@ Phases (any failed check raises, so the script exits non-zero):
      (CUDA events from forward hooks) and of the ERPC + MANO remainder, and
      the busiest CUDA kernels from torch.profiler with their sum as a share
      of the unprofiled request time (the device's busy share);
-  8. a `kernels` JSON line (times from CUDA events, bounds from this run's
+  8. training (make_train_step at full width, B=8, N=2048, augment=True,
+     pallas_gather=True, pallas_gather_bwd=True, seeded weights, synthetic
+     MANO, batches made like the JAX package's synthetic ones): a first step
+     records the inputs of the four one-hot gathers (sa1, sa2, both
+     regressor heads' sa1); the gather kernel against its plain version on
+     them (bitwise) and the scatter-add kernel on seeded cotangents (within
+     1e-5 * (1 + sum of |contributions|), atomics add in any order);
+  9. 4 training steps through the entry point with exactly 4 FPS, 4 gather
+     and 3 scatter-add launches a step (sa1 gathers the input cloud, which
+     needs no gradient) and no grouping launch, finite
+     losses, the collision term computed, every parameter and BatchNorm
+     statistic moved by the first step;
+ 10. the kernel route against the plain route on the card, one step each
+     from the same weights and draws (deterministic FPS, no dropout), and
+     the card against the CPU port at B=2, tolerances stated at each check;
+ 11. training windows/s at B=8 (CUDA events over 10 steps after 2 warm-ups,
+     a new polarity flip per step), the peak device memory of those steps,
+     and the top device kernels of one step;
+ 12. a `kernels` JSON line (times from CUDA events, bounds from this run's
      inputs);
-  9. last line: {"ok": true, "device": {...}}.
+ 13. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result without a CUDA device, or without the
 repository's package beside it.
@@ -43,6 +61,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 B, N = 16, 2048
 REQUESTS = 4
+TRAIN_B = 8
+TRAIN_STEPS = 4
+# the one-hot gathers of a training step, in call order
+GATHER_LAYERS = ("sa1", "sa2", "left regressor sa1", "right regressor sa1")
 
 
 def log(*a):
@@ -146,6 +168,337 @@ def where_the_time_goes(torch, pipe, requests):
         log(f"  kernel {ms:9.3f} ms x{count:<5d} {name[:100]}")
 
 
+def bound(ops, nbytes):
+    """(least ms, what bounds it) for ``ops`` f32 operations and ``nbytes``
+    bytes on the card's published peaks."""
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def fake_batch(np, seed, batch_size, n=N, width=346, height=260):
+    """Raw windows and MANO ground truth made like the JAX package's
+    synthetic training batches (__graft_entry__._fake_batch) from a numpy
+    seed."""
+    rng = np.random.RandomState(seed)
+
+    def hand():
+        return {
+            "global_orient": rng.randn(batch_size, 3).astype(np.float32) * 0.1,
+            "hand_pose": rng.randn(batch_size, 45).astype(np.float32) * 0.1,
+            "shape": rng.randn(batch_size, 10).astype(np.float32) * 0.1,
+            "trans": rng.randn(batch_size, 3).astype(np.float32) * 0.1,
+            "valid": np.ones(batch_size, np.float32),
+        }
+
+    t = np.sort(rng.randint(0, int(5e6), (batch_size, n))).astype(np.float32)
+    return {
+        "events": np.stack([
+            rng.randint(0, width, (batch_size, n)).astype(np.float32),
+            rng.randint(0, height, (batch_size, n)).astype(np.float32),
+            t,
+            rng.randint(0, 2, (batch_size, n)).astype(np.float32),
+        ], axis=-1),
+        "labels": rng.randint(0, 4, (batch_size, n)).astype(np.int32),
+        "left": hand(),
+        "right": hand(),
+        "handedness": np.ones((batch_size, 2), np.int32),
+    }
+
+
+def given_draws(torch, batch, cfg, seed):
+    """The ERPC noise and resample draws of ``batch``, made on the CPU from
+    a seed, so that runs on any device take the same ones."""
+    from ev2hands_tpu_torch.events.erpc import (
+        noise_draws,
+        rasterize_erpc,
+        resample_draws,
+    )
+
+    s, n = cfg.sensor, cfg.model.n_points
+    _, _, n_valid = rasterize_erpc(torch.from_numpy(batch["events"]),
+                                   torch.from_numpy(batch["labels"]),
+                                   s.width, s.height)
+    g = torch.Generator().manual_seed(seed)
+    noise = noise_draws(n_valid, n // 32, s.width, s.height, g)
+    total = n_valid + torch.where(noise.gate, n // 32, 0).to(n_valid.dtype)
+    return resample_draws(total, n, g), noise
+
+
+def step_state(net):
+    """(gradients, BatchNorm buffers) of ``net`` after a step, on the CPU."""
+    grads = {k: p.grad.detach().cpu().clone() for k, p in net.named_parameters()}
+    bufs = {k: b.detach().cpu().clone() for k, b in net.named_buffers()}
+    return grads, bufs
+
+
+def compare_steps(torch, name, a, b, loss_rtol, cos_min, norm_tol, buf_rtol,
+                  skip):
+    """Hold step ``a`` = (losses, gradients, buffers) against step ``b``:
+    every loss term within ``loss_rtol`` relative; per tensor a gradient
+    cosine >= ``cos_min`` and a norm ratio within ``norm_tol`` of 1; every
+    BatchNorm statistic within ``buf_rtol`` * max(1, |b|). The gradients
+    named in ``skip`` (``batchnorm_cancelled_biases``: zero by construction,
+    rounding noise on both sides) are left out."""
+    (la, ga, ba), (lb, gb, bb) = a, b
+    loss_dev, loss_key = max((abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-30)
+                              if la[k] != lb[k] else 0.0, k) for k in lb)
+    cos_lo, cos_key, norm_dev, bad = 1.0, None, 0.0, []
+    for k in sorted(set(gb) - skip):
+        x, y = ga[k].double().ravel(), gb[k].double().ravel()
+        nx, ny = x.norm().item(), y.norm().item()
+        cos = (x @ y).item() / max(nx * ny, 1e-300)
+        dev = abs(nx / max(ny, 1e-300) - 1)
+        if cos < cos_lo:
+            cos_lo, cos_key = cos, k
+        norm_dev = max(norm_dev, dev)
+        if cos < cos_min or dev > norm_tol:
+            bad.append((k, cos, dev))
+    buf_dev, buf_key = max(
+        (((ba[k] - bb[k]).abs() / bb[k].abs().clamp(min=1.0)).max().item(), k)
+        for k in bb)
+    log(f"{name}: loss terms max rel diff {loss_dev:.3g} at {loss_key} (limit "
+        f"{loss_rtol}); gradients min cosine {cos_lo:.9f} at {cos_key} (limit "
+        f"{cos_min}), max norm ratio deviation {norm_dev:.3g} (limit {norm_tol}), "
+        f"{len(skip)} BatchNorm-cancelled biases left out; BatchNorm statistics max rel "
+        f"diff {buf_dev:.3g} at {buf_key} (limit {buf_rtol})")
+    if loss_dev > loss_rtol or bad or buf_dev > buf_rtol:
+        raise AssertionError(f"{name}: out of tolerance; gradients {bad[:5]}")
+
+
+def top_device_kernels(torch, fn, reps):
+    """Device kernels of ``reps`` calls of ``fn`` under torch.profiler ->
+    [(name, ms per call, launches per call)], busiest first."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        # device kernels only: a user annotation (Adam's step range) spans
+        # kernels that are counted on their own
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            kernels.append((e.key, dev_us / 1e3 / reps, e.count // reps))
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    return sorted(kernels, key=lambda k: -k[1])
+
+
+def training_phases(torch, np, dev, state):
+    """Phases 8-11: the training step on the card -> (gather rows, scatter
+    rows, launches of the training run)."""
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.model import layers as klayers
+    from ev2hands_tpu_torch.model.tehnet import TEHNet, batchnorm_cancelled_biases
+    from ev2hands_tpu_torch.ops import fps as kfps
+    from ev2hands_tpu_torch.ops import gather as kga
+    from ev2hands_tpu_torch.ops import grouping as kgrp
+
+    cfg = DEFAULT_CONFIG.replace(model=ModelConfig(
+        n_points=N, pallas_gather=True, pallas_gather_bwd=True))
+    hands = {}
+
+    def build_step(model_cfg, device):
+        c = cfg.replace(model=model_cfg)
+        if device not in hands:
+            h = ktrain.build_hands(c, device=device)
+            hands[device] = (h, ktrain.build_collision_context(h))
+        net = TEHNet(model_cfg, device=device)
+        net.load_state_dict(state, strict=True)
+        opt = ktrain.make_optimizer(net.parameters(), c.train)
+        return net, ktrain.make_train_step(net, *hands[device], c, opt,
+                                           augment=True, device=device)
+
+    net, step = build_step(cfg.model, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batches = [fake_batch(np, 10 + i, TRAIN_B) for i in range(TRAIN_STEPS + 1)]
+
+    # 8. a first step records the one-hot gathers' real inputs
+    captured = []
+    real_gather = klayers.grouped_gather
+
+    def recording(src, idx, act, nb=128, sb=8, bwd="xla"):
+        captured.append((src.detach().clone(), idx.clone(), act.clone(), nb, sb,
+                         src.requires_grad))
+        return real_gather(src, idx, act, nb=nb, sb=sb, bwd=bwd)
+
+    klayers.grouped_gather = recording
+    try:
+        step(batches[0], gen)
+    finally:
+        klayers.grouped_gather = real_gather
+    if len(captured) != len(GATHER_LAYERS):
+        raise AssertionError(f"training step made {len(captured)} one-hot gathers")
+
+    gather_rows, scatter_rows = [], []
+    # sa1 gathers the input cloud, which carries no gradient: autograd (as
+    # JAX's) runs no scatter-add for it, so a step launches three. The
+    # scatter-add is checked at all four shapes and timed on the three.
+    for i, (layer, (src, idx, act, nb, sb, on_path)) in enumerate(
+            zip(GATHER_LAYERS, captured)):
+        Bt, Nt, C = src.shape
+        S, K = idx.shape[1:]
+        got = kga.onehot_gather(src, idx, act, nb, sb)
+        ref = kga.onehot_gather_plain(src, idx)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"onehot_gather {layer}: rows differ from "
+                                 f"index_points, max abs diff {err}")
+        flat_idx = idx.long().reshape(Bt, -1, 1).expand(-1, -1, C)
+        nbytes = 4 * (src.numel() + idx.numel() + got.numel())
+        row = dict(layer=layer, shape=[Bt, Nt, C, S, K], max_abs_err=err,
+                   ms=cuda_ms(torch, lambda: kga.onehot_gather(src, idx, act, nb, sb), 20),
+                   plain_ms=cuda_ms(torch, lambda: kga.onehot_gather_plain(src, idx), 20),
+                   library_ms=cuda_ms(torch, lambda: torch.gather(src, 1, flat_idx), 20))
+        row["bound_ms"], row["bound_by"] = bound(0, nbytes)
+        gather_rows.append(row)
+        log(f"onehot_gather {layer} src {[Bt, Nt, C]} -> {[Bt, S, K, C]}: rows "
+            f"bitwise equal (max abs diff {err}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+            f"ms, torch.gather {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+
+        g = torch.randn(got.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(20 + i))
+        got = kga.onehot_scatter_add(g, idx, act, Nt, nb, sb)
+        ref = kga.onehot_scatter_add_plain(g, idx, Nt)
+        limit = 1e-5 * (1 + kga.onehot_scatter_add_plain(g.abs(), idx, Nt))
+        err = (got - ref).abs()
+        torch.cuda.synchronize()
+        if not (err <= limit).all():
+            raise AssertionError(f"onehot_scatter_add {layer}: max diff {err.max().item()}")
+        rows = (idx.long().reshape(Bt, -1)
+                + Nt * torch.arange(Bt, device=dev)[:, None]).reshape(-1)
+        zeros, g_flat = torch.zeros((Bt * Nt, C), device=dev), g.reshape(-1, C)
+        nbytes = 4 * (g.numel() + idx.numel() + got.numel())
+        row = dict(layer=layer, shape=[Bt, Nt, C, S, K], on_path=on_path,
+                   max_abs_err=err.max().item(),
+                   max_err_over_limit=(err / limit).max().item(),
+                   ms=cuda_ms(torch, lambda: kga.onehot_scatter_add(g, idx, act, Nt, nb, sb), 20),
+                   plain_ms=cuda_ms(torch, lambda: kga.onehot_scatter_add_plain(g, idx, Nt), 20),
+                   library_ms=cuda_ms(torch, lambda: torch.index_add(zeros, 0, rows, g_flat), 20))
+        row["bound_ms"], row["bound_by"] = bound(g.numel(), nbytes)
+        scatter_rows.append(row)
+        log(f"onehot_scatter_add {layer} {[Bt, S, K, C]} -> {[Bt, Nt, C]}: max abs "
+            f"diff {row['max_abs_err']:.3g} ({row['max_err_over_limit']:.3g} of the "
+            f"limit); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"index_add {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']})")
+        del g, got, ref, limit, err, zeros, g_flat
+    del captured
+
+    # 9. the training run through the entry point, counted
+    counters = {"fps": kfps.fps, "msg_sparse": kgrp.msg_scale_sparse,
+                "onehot_gather": kga.onehot_gather,
+                "onehot_scatter_add": kga.onehot_scatter_add}
+    before = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        losses = step(batches[1 + i], gen)
+        if i == 0:
+            after = net.state_dict()
+            still = [k for k, v in before.items() if torch.equal(v, after[k])]
+            if still:
+                raise AssertionError(f"the first step left {still[:5]} unchanged")
+        log(f"train step {i}: " + json.dumps(losses))
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"train step {i}: a loss term is not finite")
+        if not losses["loss_interpen"] > 0:
+            raise AssertionError(f"train step {i}: no collision term")
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"training: {TRAIN_STEPS} steps of {TRAIN_B} windows in {train_s:.3f} s; "
+        f"launches {launches}")
+    # sa1's source is the input cloud: no scatter-add for it, three a step
+    want = {"fps": 4, "msg_sparse": 0, "onehot_gather": 4, "onehot_scatter_add": 3}
+    for name, per_step in want.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{TRAIN_STEPS} steps, want {per_step} a step")
+
+    # 10. kernel route vs plain route, and card vs CPU: one step each from the
+    # same weights and given draws, deterministic FPS, no dropout
+    def route_cfg(pallas_gather):
+        return ModelConfig(n_points=N, fps_deterministic=True,
+                           pallas_gather=pallas_gather, pallas_gather_bwd=pallas_gather,
+                           dropout_classifier=0.0, dropout_query=0.0,
+                           dropout_regressor=0.0)
+
+    skip = batchnorm_cancelled_biases(net)
+    draws, noise = given_draws(torch, batches[0], cfg, seed=7)
+    runs = {}
+    for pallas_gather in (True, False):
+        net_r, step_r = build_step(route_cfg(pallas_gather), dev)
+        losses = step_r(batches[0], draws=draws, noise=noise)
+        runs[pallas_gather] = (losses, *step_state(net_r))
+        del net_r, step_r
+    # The gather is an exact copy, so the forward is the same on both routes;
+    # the backward sums the slot cotangents in another order (atomics on both
+    # routes), and the gradients of earlier layers inherit that rounding.
+    compare_steps(torch, "kernel route vs plain route (card, B=8)", runs[True],
+                  runs[False], loss_rtol=1e-6, cos_min=1 - 1e-6, norm_tol=1e-4,
+                  buf_rtol=1e-6, skip=skip)
+
+    two = {k: ({kk: vv[:2] for kk, vv in v.items()} if isinstance(v, dict) else v[:2])
+           for k, v in batches[0].items()}
+    draws2, noise2 = given_draws(torch, two, cfg, seed=8)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        net_r, step_r = build_step(route_cfg(True), device)
+        t0 = time.perf_counter()
+        losses = step_r(two, draws=draws2, noise=noise2)
+        secs = time.perf_counter() - t0
+        runs[device] = (losses, *step_state(net_r))
+        del net_r, step_r
+    log(f"card vs CPU: the CPU step (plain versions, B=2) took {secs:.1f} s")
+    # f32 on both, sums in other orders (cuBLAS vs the CPU's BLAS, atomics):
+    # loss terms within 1e-4, gradient directions within cosine 0.999 and
+    # norms within 5%. BatchNorm statistics within 1e-4: the batch variance
+    # is mean(x * x) - mean(x)^2 (the JAX package's formula), so a channel
+    # whose mean is large against its spread loses digits to cancellation,
+    # and the two devices round its inputs differently.
+    compare_steps(torch, "card vs CPU (B=2)", runs["cuda"], runs["cpu"],
+                  loss_rtol=1e-4, cos_min=0.999, norm_tol=0.05, buf_rtol=1e-4,
+                  skip=skip)
+    del runs
+
+    # 11. training throughput at B=8, a new polarity flip per step
+    batch = {k: ({kk: torch.from_numpy(vv).to(dev) for kk, vv in v.items()}
+                 if isinstance(v, dict) else torch.from_numpy(v).to(dev))
+             for k, v in batches[1].items()}
+    raw_d = batch["events"]
+    flip_gen = torch.Generator(device=dev).manual_seed(4)
+
+    def one_step():
+        flip = torch.rand((TRAIN_B, 1), generator=flip_gen, device=dev) < 0.5
+        p = raw_d[..., 3]
+        ev = torch.cat([raw_d[..., :3], torch.where(flip, 1.0 - p, p)[..., None]], -1)
+        return step(dict(batch, events=ev), gen)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(torch, one_step, 10, warmup=2)
+    log(f"training: {step_ms:.3f} ms per step of {TRAIN_B} windows, "
+        f"{TRAIN_B / (step_ms / 1e3):.2f} windows/s (augment, kernel route); "
+        f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    kernels = top_device_kernels(torch, one_step, 2)
+    busy = sum(k[1] for k in kernels)
+    log(f"training: device kernels {busy:.3f} ms per step = "
+        f"{100 * busy / step_ms:.1f}% busy of {step_ms:.3f} ms; top 10 "
+        f"{sum(k[1] for k in kernels[:10]):.3f} ms")
+    for name, ms, count in kernels[:10]:
+        log(f"  kernel {ms:9.3f} ms x{count:<5d} {name[:100]}")
+    return gather_rows, scatter_rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -185,9 +538,10 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.build(["fps", "msg_sparse"])
+    _build.build(_build.KERNELS)
     build_s = time.perf_counter() - t0
-    log(f"build: csrc/fps.cu, csrc/msg_sparse.cu -> sm_90a in {build_s:.1f} s")
+    log(f"build: {', '.join(f'csrc/{k}.cu' for k in _build.KERNELS)} -> sm_90a "
+        f"in {build_s:.1f} s")
     for name, text in sorted(_build.build_logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -355,17 +709,27 @@ def main() -> int:
             (torch.from_numpy(raw).to(dev), torch.from_numpy(lab).to(dev), gen)
             for raw, lab, _ in requests])
 
-    # 8. the kernels line
-    def entry(name, source, replaces, rows, err):
+    # 8-11. training
+    gather_rows, scatter_rows, train_launches = training_phases(torch, np, dev, state)
+
+    # 12. the kernels line. ms, plain_ms, bound_ms and library_ms add the
+    # calls of one pass: the three serving FPS shapes and sa1 scales of a
+    # forward, the four gathers and three scatter-adds of a training step.
+    # launches: both driven paths, serving's 4 requests and training's 4
+    # steps, also listed by path.
+    def entry(name, source, replaces, rows, err, library=False):
         return {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches.get(name, 0) + train_launches[name],
+            "launches_by_path": {"serving": launches.get(name, 0),
+                                 "training": train_launches[name]},
             "max_abs_err": err,
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": None,
+            "library_ms": sum(r["library_ms"] for r in rows) if library else None,
         }
 
     kernels = [
@@ -375,9 +739,14 @@ def main() -> int:
         entry("msg_sparse", "ev2hands_tpu_torch/csrc/msg_sparse.cu",
               "ev2hands_tpu/ops/pallas_grouping.py:595", grp_rows,
               max(r["max_abs_err"] for r in grp_rows)),
+        entry("onehot_gather", "ev2hands_tpu_torch/csrc/gather.cu",
+              "ev2hands_tpu/ops/pallas_gather.py:142", gather_rows,
+              max(r["max_abs_err"] for r in gather_rows), library=True),
+        entry("onehot_scatter_add", "ev2hands_tpu_torch/csrc/gather.cu",
+              "ev2hands_tpu/ops/pallas_gather.py:230",
+              [r for r in scatter_rows if r["on_path"]],
+              max(r["max_abs_err"] for r in scatter_rows), library=True),
     ]
-    # per-forward sums: ms, plain_ms and bound_ms add the three calls of
-    # one forward (three FPS shapes; three sa1 scales)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """Configuration of the PyTorch port: the fields of ``ev2hands_tpu.config``
-that the inference slice reads, copied so that the port imports nothing of
-the JAX package. Field names and defaults are the JAX package's."""
+that the inference and training slices read, copied so that the port
+imports nothing of the JAX package. Field names and defaults are the JAX
+package's."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,17 +22,30 @@ class SensorConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ManoConfig:
+    """MANO hand-model hyperparameters read by training."""
+
+    n_pose_comps: int = 6        # PCA pose components fed to the network
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """TEHNet architecture switches read by the inference path."""
+    """TEHNet architecture switches read by the inference and training
+    paths."""
 
     num_classes: int = 4           # bg / left / right / noise
     n_points: int = 2048           # events per window
     erpc: bool = True              # 5-channel ERPC input (x, y, t_avg, #pos, #neg)
     mhlnes: bool = False           # replace the t coordinate with mean polarity
-    # Eval always samples from index 0; the switch matters for training only.
+    # Training draws a random FPS start per layer unless this is set; eval
+    # always samples from index 0.
     fps_deterministic: bool = False
-    # Neighborhood grouping of the set-abstraction blocks. The port has the
-    # 'dense' eval formulation; 'gather' (the training path) is not ported yet.
+    # One random FPS draw for both regressor heads in training (the
+    # reference draws one per head).
+    shared_head_fps: bool = False
+    # Neighborhood grouping of the set-abstraction blocks in eval: 'dense'
+    # (masked pairs, the block-sparse kernel on the large scales) or
+    # 'gather' (ball query + neighbor gather). Training always gathers.
     grouping: str = "dense"
     grouping_sa1: Optional[str] = None
     grouping_sa2: Optional[str] = None
@@ -44,6 +58,20 @@ class ModelConfig:
     pallas_grouping: bool = True
     # Point-tile size of the block-sparse grouping (points per activity bit).
     pallas_nb: int = 256
+    # Gather the grouped neighbors with the one-hot gather kernel
+    # (ops/gather.grouped_gather) over a Morton-ordered source, ball queries
+    # in the permuted column order; the names are the JAX package's.
+    pallas_gather: bool = False
+    # Sort-free cumsum-rank ball query on the gather route (same indices as
+    # the top-k form).
+    rank_ball_query: bool = True
+    # Point-tile size of the one-hot gather's activity map.
+    pallas_gather_nb: int = 128
+    # Backward of the one-hot gather: the scatter-add kernel (True) or the
+    # plain scatter-add (False).
+    pallas_gather_bwd: bool = False
+    # Take the one-hot gather for wide sources too (3 * (D + 3) > 128, sa2).
+    pallas_gather_wide: bool = True
     dropout_classifier: float = 0.3
     dropout_query: float = 0.1
     dropout_regressor: float = 0.3
@@ -54,9 +82,33 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss weights."""
+
+    collision_weight: float = 1e2
+    collision_sigma: float = 0.5
+    collision_max_pairs: int = 128      # colliding pairs kept per sample
+    ce_class_weights: Tuple[float, ...] = (1.0, 30.0, 30.0, 10.0)
+    ce_ignore_index: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters read by the training step."""
+
+    batch_size: int = 8
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.0
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     sensor: SensorConfig = SensorConfig()
+    mano: ManoConfig = ManoConfig()
     model: ModelConfig = ModelConfig()
+    loss: LossConfig = LossConfig()
+    train: TrainConfig = TrainConfig()
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

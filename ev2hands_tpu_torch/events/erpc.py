@@ -1,11 +1,13 @@
 """ERPC event-window transform in PyTorch, batched.
 
-Counterpart of ``ev2hands_tpu/events/erpc.py`` without augmentation (the
-inference path): raw windows [B, N, 4] = (x, y, t, p) are rasterised into
-per-pixel ERPC rows (x, y, mean t in ms, #positive, #negative) in row-major
-pixel order, resampled uniformly with replacement to ``n_out`` rows, and
-normalised (x, y by sensor size, t by the window's min/max; the counts
-stay raw). A pixel's label is the largest label of its events.
+Counterpart of ``ev2hands_tpu/events/erpc.py``: raw windows [B, N, 4] =
+(x, y, t, p) are rasterised into per-pixel ERPC rows (x, y, mean t in ms,
+#positive, #negative) in row-major pixel order, optionally augmented with
+``n_out // 32`` noise rows (training), resampled uniformly with replacement
+to ``n_out`` rows, and normalised (x, y by sensor size, t by the window's
+min/max; the counts stay raw). A pixel's label is the largest label of its
+events. Every random draw comes from a ``torch.Generator`` or is given, so
+a test can hand the port the JAX package's draws.
 
 Device independence: the per-pixel time sum is taken in float64, exact for
 float32 inputs, and rounded once, so the CPU and the card give the same
@@ -141,6 +143,73 @@ def resample_draws(n_valid: torch.Tensor, n_out: int,
     return torch.minimum(r, total - 1)
 
 
+class NoiseDraws(NamedTuple):
+    """The draws of the noise augmentation, per window (n = n_out // 32)."""
+
+    gate: torch.Tensor   # [B] bool: the augmentation fires
+    xs: torch.Tensor     # [B, n] ints in [0, width)
+    ys: torch.Tensor     # [B, n] ints in [0, height)
+    src: torch.Tensor    # [B, n] ints in [0, max(n_valid, 1)): row whose t is copied
+    t: torch.Tensor      # [B, n] float32 in [0, 1): t offset / 1e3 ms
+    ps: torch.Tensor     # [B, n] bool: the +1 goes to the positive count
+    n_pe: torch.Tensor   # [B, n] ints in [0, 8): positive count
+    n_ne: torch.Tensor   # [B, n] ints in [0, 8): negative count
+
+
+def _uniform_ints(high: torch.Tensor, shape, generator) -> torch.Tensor:
+    """Ints uniform in [0, high) with ``high`` broadcast over ``shape``."""
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=torch.float64).to(high.device)
+    return torch.minimum((u * high).long(), high - 1)
+
+
+def noise_draws(n_valid: torch.Tensor, n_noise: int, width: int, height: int,
+                generator: torch.Generator) -> NoiseDraws:
+    """NoiseDraws from ``generator`` (on its own device), on ``n_valid``'s
+    device."""
+    B = n_valid.shape[0]
+    dev = n_valid.device
+    shape = (B, n_noise)
+
+    def ints(high):
+        return _uniform_ints(torch.as_tensor(high, device=dev), shape, generator)
+
+    def unit():
+        return torch.rand(shape, generator=generator,
+                          device=generator.device).to(dev)
+
+    return NoiseDraws(
+        gate=torch.rand((B,), generator=generator,
+                        device=generator.device).to(dev) < 0.5,
+        xs=ints(width), ys=ints(height),
+        src=ints(torch.clamp(n_valid.long(), min=1)[:, None]),
+        t=unit(), ps=unit() < 0.5, n_pe=ints(8), n_ne=ints(8))
+
+
+def append_noise(feats: torch.Tensor, labels: torch.Tensor,
+                 noise: NoiseDraws) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Append the noise rows after the P pixel rows -> (feats [B, P + n, 5],
+    labels [B, P + n], noise_count [B]). A window whose gate fires gets
+    rows labelled 3: a random pixel, the t of a random valid row plus
+    U[0, 1) * 1e3 ms, polarity counts randint(0, 8) with a +1 on one side;
+    the others get zero rows labelled 0 and count no noise."""
+    n = noise.xs.shape[1]
+    ts = torch.gather(feats[..., 2], 1, noise.src.long()) + noise.t * 1e3
+    ps = noise.ps.long()
+    rows = torch.stack([
+        noise.xs.to(feats.dtype), noise.ys.to(feats.dtype), ts,
+        (noise.n_pe.long() + ps).to(feats.dtype),
+        (noise.n_ne.long() + 1 - ps).to(feats.dtype),
+    ], dim=-1)
+    gate = noise.gate.to(feats.device)
+    rows = torch.where(gate[:, None, None], rows, 0.0)
+    noise_labels = torch.where(gate[:, None], 3, 0).to(labels.dtype).expand(-1, n)
+    count = torch.where(gate, n, 0).to(torch.int32)
+    return (torch.cat([feats, rows], dim=1),
+            torch.cat([labels, noise_labels], dim=1), count)
+
+
 def erpc_batch_transform(
     events: torch.Tensor,   # [B, N, 4] raw windows: x, y, t, p
     labels: torch.Tensor,   # [B, N] int
@@ -150,23 +219,38 @@ def erpc_batch_transform(
     height: int = 260,
     n_out: int = 2048,
     time_scale: float = 1e-6,
+    augment: bool = False,
+    noise: Optional[NoiseDraws] = None,
 ) -> ErpcWindow:
-    """Raw windows -> normalised ERPC clouds [B, n_out, 5] (no augmentation).
+    """Raw windows -> normalised ERPC clouds [B, n_out, 5].
 
-    The resample takes either ``draws`` [B, n_out] (ints in
-    [0, max(n_valid, 1)), e.g. the JAX package's ``randint`` draws) or a
-    ``generator``."""
+    ``augment`` appends the noise rows of ``noise`` (or of draws from
+    ``generator``) to windows whose gate fires. The resample over the valid
+    pixel rows and the active noise rows takes either ``draws`` [B, n_out]
+    (ints in [0, max(n_valid + noise_count, 1)), e.g. the JAX package's
+    ``randint`` draws) or draws from ``generator``."""
     feats, pix_labels, n_valid = rasterize_erpc(
         events, labels, width, height, time_scale=time_scale)
     B, P, _ = feats.shape
     n_noise = n_out // 32
-    # the augmentation's noise rows are present but inactive, as in JAX
-    feats = torch.cat([feats, feats.new_zeros(B, n_noise, 5)], dim=1)
-    pix_labels = torch.cat([pix_labels, pix_labels.new_zeros(B, n_noise)], dim=1)
+    if augment:
+        if noise is None:
+            if generator is None:
+                raise ValueError("erpc_batch_transform: pass a generator or noise draws")
+            noise = noise_draws(n_valid, n_noise, width, height, generator)
+        noise = NoiseDraws(*(t.to(events.device) for t in noise))
+        if tuple(noise.xs.shape) != (B, n_noise):
+            raise ValueError(f"noise draws must be [{B}, {n_noise}]")
+        feats, pix_labels, noise_count = append_noise(feats, pix_labels, noise)
+    else:
+        # the augmentation's noise rows are present but inactive, as in JAX
+        feats = torch.cat([feats, feats.new_zeros(B, n_noise, 5)], dim=1)
+        pix_labels = torch.cat([pix_labels, pix_labels.new_zeros(B, n_noise)], dim=1)
+        noise_count = torch.zeros_like(n_valid)
     if draws is None:
         if generator is None:
             raise ValueError("erpc_batch_transform: pass a generator or draws")
-        draws = resample_draws(n_valid, n_out, generator)
+        draws = resample_draws(n_valid + noise_count, n_out, generator)
     if tuple(draws.shape) != (B, n_out):
         raise ValueError(f"draws must be [{B}, {n_out}], got {tuple(draws.shape)}")
     sampled, sampled_labels = sample_fixed(

@@ -1,0 +1,149 @@
+"""The training losses on synthetic data, in PyTorch.
+
+Counterpart of ``ev2hands_tpu/losses.py`` (``mano_losses``, the loss dict
+of the reference's synthetic-data branch): the same keys, reductions and
+weights. Masked reductions average over the elements of the valid samples
+and give 0 when no sample is valid. The regulariser keeps the reference's
+effective weight 0 by default. ``real_losses`` (real data) is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from ev2hands_tpu_torch.config import LossConfig
+from ev2hands_tpu_torch.mano.layer import ManoParams, mano_forward
+from ev2hands_tpu_torch.ops.collision import collision_loss
+
+
+def masked_mean(elem_loss: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean over all elements of the samples where ``valid`` ([B]); 0 when
+    none is valid."""
+    B = elem_loss.shape[0]
+    flat = elem_loss.reshape(B, -1)
+    v = valid.reshape(B, 1).to(flat.dtype)
+    denom = v.sum() * flat.shape[1]
+    return torch.where(denom > 0, (flat * v).sum() / torch.clamp(denom, min=1.0),
+                       0.0)
+
+
+def mse(a, b):
+    return (a - b) ** 2
+
+
+def l1(a, b):
+    return torch.abs(a - b)
+
+
+def weighted_cross_entropy(
+    logits: torch.Tensor,         # [B, N, C]
+    targets: torch.Tensor,        # [B, N] int
+    class_weights: torch.Tensor,  # [C]
+    ignore_index: int = 0,
+) -> torch.Tensor:
+    """torch ``F.cross_entropy(weight=..., ignore_index=...)``:
+    sum(w[y] * nll) / sum(w[y]) over the targets that are not ignored."""
+    targets = targets.long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    w = class_weights.to(logits.dtype)[targets] * (targets != ignore_index)
+    denom = w.sum()
+    return torch.where(denom > 0, (w * nll).sum() / torch.clamp(denom, min=1.0),
+                       0.0)
+
+
+class CollisionContext(NamedTuple):
+    """Fixed mesh topology of the collision loss."""
+
+    faces: torch.Tensor      # [2F, 3] int64 two-hand faces
+    adjacency: torch.Tensor  # [2F, 2F] bool
+
+
+def _interpen(outputs, ctx: CollisionContext, cfg: LossConfig) -> torch.Tensor:
+    return collision_loss(
+        outputs["left"]["vertices"], outputs["right"]["vertices"],
+        ctx.faces, ctx.adjacency, max_pairs=cfg.collision_max_pairs,
+        sigma=cfg.collision_sigma, weight=cfg.collision_weight)
+
+
+def recompute_gt_joints(hands: Dict[str, ManoParams], targets: Dict) -> Dict:
+    """GT joints and vertices from the GT MANO parameters; PCA components
+    beyond the layer's are ignored."""
+    out = dict(targets)
+    for side in ("left", "right"):
+        t = targets[side]
+        res = mano_forward(
+            hands[side], t["global_orient"],
+            t["hand_pose"][..., :hands[side].pose_basis.shape[0]],
+            t["shape"], t["trans"])
+        out[side] = dict(t, j3d=res.joints, vertices=res.vertices)
+    return out
+
+
+def mano_losses(
+    outputs: Dict,
+    targets: Dict,
+    hands: Dict[str, ManoParams],
+    ctx: CollisionContext,
+    cfg: LossConfig = LossConfig(),
+    n_pose_comps: int = 6,
+    reg_weight: float = 0.0,
+) -> Dict[str, torch.Tensor]:
+    """The synthetic-data loss dict. ``outputs`` is the TEHNet + MANO
+    forward result; ``targets`` the batch dict (per hand global_orient,
+    hand_pose, shape, trans, valid; handedness [B, 2]; class_logits, the
+    per-event labels)."""
+    losses: Dict[str, torch.Tensor] = {}
+    targets = recompute_gt_joints(hands, targets)
+
+    losses["loss_interpen"] = _interpen(outputs, ctx, cfg)
+
+    interacting = targets["handedness"].sum(dim=1) == 2
+
+    losses["loss_inter_shape"] = masked_mean(
+        mse(outputs["left"]["betas"], outputs["right"]["betas"]), interacting)
+    losses["loss_inter_transl"] = masked_mean(
+        mse(outputs["left"]["transl"] - outputs["right"]["transl"],
+            targets["left"]["trans"] - targets["right"]["trans"]),
+        interacting) * 100.0
+    losses["loss_inter_j3d"] = masked_mean(
+        mse(outputs["left"]["j3d"] - outputs["right"]["j3d"],
+            targets["left"]["j3d"] - targets["right"]["j3d"]),
+        interacting) * 100.0
+
+    for k in ("loss_global_orient", "loss_hand_pose", "loss_rj3d", "loss_j3d",
+              "loss_shape", "loss_transl", "regularizer_loss"):
+        losses.setdefault(k, 0.0)
+
+    for side in ("left", "right"):
+        o, t = outputs[side], targets[side]
+        valid = t["valid"]
+        losses["loss_global_orient"] += masked_mean(
+            mse(o["global_orient"], t["global_orient"]), valid) * 10.0
+        gt_pose = t["hand_pose"][..., :n_pose_comps]
+        losses["loss_hand_pose"] += masked_mean(mse(o["hand_pose"], gt_pose),
+                                                valid) * 10.0
+        rj_o = (o["j3d"][:, 1:, :] - o["j3d"][:, :1, :]) * 1000.0
+        rj_t = (t["j3d"][:, 1:, :] - t["j3d"][:, :1, :]) * 1000.0
+        losses["loss_rj3d"] += masked_mean(l1(rj_o, rj_t), valid) * 0.01
+        losses["loss_j3d"] += masked_mean(
+            l1(o["j3d"] * 1000.0, t["j3d"] * 1000.0), valid) * 0.01
+        losses["loss_shape"] += masked_mean(mse(o["betas"], t["shape"]), valid) * 10.0
+        losses["loss_transl"] += masked_mean(l1(o["transl"], t["trans"]), valid) * 10.0
+        # the reference's regulariser is mse(x, x) == 0; reg_weight 0 keeps it
+        losses["regularizer_loss"] += reg_weight * (
+            0.1 * masked_mean(o["betas"] ** 2, valid)
+            + masked_mean(o["hand_pose"] ** 2, valid))
+
+    losses["loss_class_logits"] = weighted_cross_entropy(
+        outputs["class_logits"], targets["class_logits"],
+        torch.as_tensor(cfg.ce_class_weights, device=outputs["class_logits"].device),
+        cfg.ce_ignore_index)
+    return losses
+
+
+def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The sum of every loss term."""
+    return sum(losses.values())

@@ -4,7 +4,7 @@ Counterpart of ``ev2hands_tpu/mano/layer.py``: PCA pose space (6
 components, non-flat mean), shape and pose-corrective blend shapes, linear
 blend skinning, 16 joints + 5 fingertip vertices in the 21-joint layout, in
 meters. The batch dimension is written out where the JAX package used
-``vmap``.
+``vmap``. Differentiable end to end: every tensor is built out of place.
 """
 
 from __future__ import annotations
@@ -92,13 +92,12 @@ def _rigid_transform_chain(
     [B, 16, 4, 4] with the rest pose removed)."""
     B = rot_mats.shape[0]
     parents = KINTREE_PARENTS
-    rel_pos = joints.clone()
-    rel_pos[:, 1:] = joints[:, 1:] - joints[:, parents[1:]]
-
-    T = rot_mats.new_zeros(B, 16, 4, 4)
-    T[:, :, :3, :3] = rot_mats
-    T[:, :, :3, 3] = rel_pos
-    T[:, :, 3, 3] = 1.0
+    rel_pos = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, parents[1:]]],
+                        dim=1)
+    # built out of place, so autograd sees no write into a saved tensor
+    bottom = rot_mats.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(B, 16, 1, 4)
+    T = torch.cat([torch.cat([rot_mats, rel_pos[..., None]], dim=-1), bottom],
+                  dim=-2)
     transforms = [T[:, 0]]
     for k in range(1, len(parents)):
         transforms.append(transforms[parents[k]] @ T[:, k])
@@ -106,9 +105,9 @@ def _rigid_transform_chain(
 
     posed_joints = G[:, :, :3, 3]
     correction = torch.einsum("bkij,bkj->bki", G[:, :, :3, :3], joints)
-    rel = G.clone()
-    rel[:, :, :3, 3] = G[:, :, :3, 3] - correction
-    return posed_joints, rel
+    top = torch.cat([G[:, :, :3, :3], (posed_joints - correction)[..., None]],
+                    dim=-1)
+    return posed_joints, torch.cat([top, G[:, :, 3:]], dim=-2)
 
 
 def mano_forward(

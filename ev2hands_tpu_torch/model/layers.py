@@ -1,12 +1,18 @@
-"""PointNet++ building blocks of TEHNet's eval path, channels-last
-``[B, N, C]``.
+"""PointNet++ building blocks of TEHNet, channels-last ``[B, N, C]``, in
+eval and in training.
 
 Counterpart of ``ev2hands_tpu/model/layers.py``. Parameters carry the
 reference's torch names and shapes (``conv_blocks.i.j`` Conv2d 1x1,
 ``mlp_convs.j``, BatchNorm ``weight``/``bias``/``running_mean``/
 ``running_var``), so a state dict from ``weights.flax_to_torch`` or the
-reference loads with ``strict=True``. Only inference is ported: BatchNorm
-normalises with its running statistics and refuses training mode.
+reference loads with ``strict=True``.
+
+Training follows the JAX package, which this port is held against:
+BatchNorm normalises with the biased batch variance and moves its running
+statistics flax's way (the biased variance for both, where torch's own
+BatchNorm stores the unbiased one); dropout draws from an explicit
+``torch.Generator``, never the global one; the set-abstraction layers
+group by gathering each centroid's selected neighbors.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ev2hands_tpu_torch.ops.fps import fps
+from ev2hands_tpu_torch.ops.gather import grouped_gather, pos_tile_activity
 from ev2hands_tpu_torch.ops.grouping import (
     dense_selection_mask,
     fold_scale_params,
@@ -29,6 +36,8 @@ from ev2hands_tpu_torch.ops.grouping import (
 from ev2hands_tpu_torch.ops.pointnet import (
     group_all,
     index_points,
+    query_ball_point,
+    query_ball_point_permuted,
     square_distance,
     three_nn_interpolate,
 )
@@ -59,8 +68,15 @@ class Pointwise(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over the last axis with flax's formula,
-    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, eps 1e-5."""
+    """BatchNorm over the last axis with flax's formulas, eps 1e-5:
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``.
+
+    Eval uses the running statistics. Training uses the batch mean and the
+    biased batch variance ``mean(x * x) - mean(x)^2`` (clipped at 0) over
+    every axis but the last, and moves the running statistics to
+    ``0.9 * running + (1 - 0.9) * batch``, in place."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, device="cuda", eps: float = 1e-5):
         super().__init__()
@@ -72,13 +88,53 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise RuntimeError("BatchNorm: only eval is ported; call .eval()")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
     def affine(self) -> dict:
         return {"scale": self.weight, "bias": self.bias,
                 "mean": self.running_mean, "var": self.running_var}
+
+
+class Dropout(nn.Module):
+    """flax's dropout: in training keep each element with probability
+    1 - p, drawn from ``generator``, and scale the kept ones by 1/(1 - p).
+    The identity in eval or at p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("Dropout: training needs a generator")
+        keep = 1.0 - self.p
+        u = torch.rand(x.shape, generator=generator, device=generator.device,
+                       dtype=x.dtype).to(x.device)
+        return torch.where(u < keep, x / keep, 0.0)
+
+
+class Chain(nn.Sequential):
+    """A Sequential whose Dropout slots draw from the generator given to
+    ``forward``."""
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for module in self:
+            x = module(x, generator) if isinstance(module, Dropout) else module(x)
+        return x
 
 
 class Conv1dK3(nn.Module):
@@ -96,31 +152,53 @@ class Conv1dK3(nn.Module):
 
 
 class SetAbstractionMsg(nn.Module):
-    """Multi-scale-grouping set abstraction, dense eval formulation.
+    """Multi-scale-grouping set abstraction.
 
     xyz [B, N, 3], points [B, N, D] -> (new_xyz [B, S, 3],
     new_points [B, S, sum(mlp[-1])]). One FPS and one squared-distance tensor
     are shared by the scales. A scale pools, over each centroid's first
     ``nsample`` in-radius points, the conv/BN/ReLU chain of
-    ``[points_n, xyz_n - c_s]``. Large three-layer scales run the
-    block-sparse kernel (``_sparse_scale``); the others run masked dense
-    pairs in centroid chunks (``_dense_scale``). Both give the same values.
+    ``[points_n, xyz_n - c_s]``. Two formulations:
+
+    * dense (eval with ``grouping="dense"``): masked pairs; large
+      three-layer scales run the block-sparse kernel (``_sparse_scale``),
+      the others masked dense pairs in centroid chunks (``_dense_scale``).
+      Both give the same values.
+    * gather (training, or eval with ``grouping="gather"``): the ball query
+      selects K neighbors per scale and one gather of ``[points, xyz]`` rows
+      serves every scale, so BatchNorm sees the selected-neighbor multiset,
+      backfill duplicates included. Behind ``use_pallas_gather`` the rows
+      are gathered in Morton order by the one-hot gather kernel
+      (``_pallas_gathered``), else by ``index_points`` (``_gathered``):
+      the same rows either way.
     """
 
     def __init__(
         self, npoint: int, radius_list: Sequence[float],
         nsample_list: Sequence[int], in_channel: int,
-        mlps: Sequence[Sequence[int]], dense_chunk: int = 64,
-        pallas_grouping: bool = True, pallas_nb: int = 256, device="cuda",
+        mlps: Sequence[Sequence[int]], grouping: str = "dense",
+        dense_chunk: int = 64, pallas_grouping: bool = True,
+        pallas_nb: int = 256, pallas_gather: bool = False,
+        pallas_gather_nb: int = 128, pallas_gather_bwd: bool = False,
+        pallas_gather_wide: bool = True, rank_ball_query: bool = True,
+        device="cuda",
     ):
         super().__init__()
+        if grouping not in ("dense", "gather"):
+            raise ValueError(f"grouping={grouping!r}: want 'dense' or 'gather'")
         self.npoint = npoint
         self.radius_list = tuple(radius_list)
         self.nsample_list = tuple(nsample_list)
         self.mlps = tuple(tuple(m) for m in mlps)
+        self.grouping = grouping
         self.dense_chunk = dense_chunk
         self.pallas_grouping = pallas_grouping
         self.pallas_nb = pallas_nb
+        self.pallas_gather = pallas_gather
+        self.pallas_gather_nb = pallas_gather_nb
+        self.pallas_gather_bwd = pallas_gather_bwd
+        self.pallas_gather_wide = pallas_gather_wide
+        self.rank_ball_query = rank_ball_query
         self.conv_blocks = nn.ModuleList()
         self.bn_blocks = nn.ModuleList()
         for mlp in self.mlps:
@@ -144,16 +222,41 @@ class SetAbstractionMsg(nn.Module):
             and n_points * self.npoint >= SPARSE_MIN_PAIRS
         )
 
+    def use_pallas_gather(self, n_points: int, d: int) -> bool:
+        """The shape terms of the JAX package's ``_use_pallas_gather``. Its
+        test for a TPU backend and its two VMEM-size terms are dropped: they
+        size the TPU's on-chip memory, and TEHNet's four layers pass them
+        at their shapes anyway."""
+        nb = self.pallas_gather_nb
+        return (
+            self.pallas_gather
+            and (3 * (d + 3) <= 128 or self.pallas_gather_wide)
+            and n_points % nb == 0
+            and n_points >= 2 * nb        # no tile to skip below two tiles
+            and n_points <= 8192          # full-resolution Morton keys
+            and self.npoint % 8 == 0
+        )
+
     def forward(
         self, xyz: torch.Tensor, points: torch.Tensor,
         fps_idx: Optional[torch.Tensor] = None,
+        fps_start: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``fps_idx`` [B, S] gives the centroids; otherwise FPS samples
+        them, each row from ``fps_start`` [B] (default index 0)."""
         if points is None:
             raise NotImplementedError("SetAbstractionMsg without point features")
         N = xyz.shape[1]
         if fps_idx is None:
-            fps_idx = fps(xyz, self.npoint)
+            fps_idx = fps(xyz, self.npoint, fps_start)
         new_xyz = index_points(xyz, fps_idx)
+        if self.training or self.grouping == "gather":
+            if self.use_pallas_gather(N, points.shape[-1]):
+                gathered = self._pallas_gathered(xyz, points, new_xyz)
+            else:
+                gathered = self._gathered(xyz, points, new_xyz)
+            return new_xyz, self._gather_scales(gathered, new_xyz,
+                                                points.shape[-1])
         sqrdists = square_distance(new_xyz, xyz)  # [B, S, N], shared
         sparse = [self.use_sparse_scale(i, N) for i in range(len(self.mlps))]
         perm = xyz_p = points_p = None
@@ -172,6 +275,48 @@ class SetAbstractionMsg(nn.Module):
                 outs.append(self._dense_scale(
                     i, xyz, points, new_xyz, sqrdists, radius, k))
         return new_xyz, torch.cat(outs, dim=-1)
+
+    def _gathered(self, xyz, points, new_xyz):
+        """[B, S, sum(K), D + 3] rows of ``[points, xyz]`` at every scale's
+        ball query, one ``index_points`` for all scales."""
+        sqrdists = square_distance(new_xyz, xyz)
+        idx = torch.cat([
+            query_ball_point(r, k, sqrdists, rank=self.rank_ball_query)
+            for r, k in zip(self.radius_list, self.nsample_list)], dim=-1)
+        return index_points(torch.cat([points, xyz], dim=-1), idx)
+
+    def _pallas_gathered(self, xyz, points, new_xyz):
+        """The same rows as ``_gathered``, gathered by the one-hot gather
+        kernel from a Morton-ordered source. The ball queries run on the
+        distances in permuted column order; ``square_distance`` is
+        elementwise, so those are the exact permutation of the unpermuted
+        ones and the selection is the same."""
+        nb = self.pallas_gather_nb
+        perm = morton_perm(xyz)
+        xyz_p = index_points(xyz, perm)
+        sqrdists_p = square_distance(new_xyz, xyz_p)
+        pos = torch.cat([
+            query_ball_point_permuted(r, k, perm, sqrdists_p)
+            for r, k in zip(self.radius_list, self.nsample_list)], dim=-1)
+        src_p = torch.cat([index_points(points, perm), xyz_p], dim=-1)
+        act = pos_tile_activity(pos, nb, xyz.shape[1])
+        return grouped_gather(src_p, pos, act, nb=nb,
+                              bwd="pallas" if self.pallas_gather_bwd else "xla")
+
+    def _gather_scales(self, gathered, new_xyz, D):
+        """Per scale: its K slots, centred xyz, the conv/BN/ReLU chain and
+        the max over the slots (ties share the gradient, as in JAX)."""
+        outs = []
+        k_off = 0
+        for convs, bns, k in zip(self.conv_blocks, self.bn_blocks,
+                                 self.nsample_list):
+            g = gathered[:, :, k_off:k_off + k]
+            k_off += k
+            x = torch.cat([g[..., :D], g[..., D:] - new_xyz[:, :, None, :]], dim=-1)
+            for conv, bn in zip(convs, bns):
+                x = torch.relu(bn(conv(x)))
+            outs.append(torch.amax(x, dim=2))
+        return torch.cat(outs, dim=-1)
 
     def sparse_scale_inputs(self, i, new_xyz, sqrdists, radius, k, perm,
                             xyz_p, points_p):
@@ -275,7 +420,7 @@ def attention_block(key: torch.Tensor, value: torch.Tensor,
     return torch.einsum("bkc,bnc->bnk", sim, value)
 
 
-class QueryConv(nn.Sequential):
+class QueryConv(Chain):
     """Per-hand query head over the event axis; slots conv0, relu, bn0,
     drop, conv1, bn1 as in the reference's Sequential."""
 
@@ -285,7 +430,7 @@ class QueryConv(nn.Sequential):
             Conv1dK3(in_channel, features, device),
             nn.ReLU(),
             BatchNorm(features, device),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             Conv1dK3(features, features, device),
             BatchNorm(features, device),
         )

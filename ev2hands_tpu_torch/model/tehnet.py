@@ -1,15 +1,21 @@
-"""TEHNet's eval forward in PyTorch, channels-last.
+"""TEHNet's forward in PyTorch, channels-last, in eval and in training.
 
 Counterpart of ``ev2hands_tpu/model/tehnet.py``: a PointNet++
 encoder-decoder over the ERPC cloud, a 4-class per-event segmentation head,
 class-space attention and two MANO parameter regressors. Module names follow
 the reference's torch state dict (``sa1``, ``fp3``, ``classifier.N``,
 ``left_query_conv.N``, ``left_mano_regressor.mano_regressor.N``, ...).
+
+Eval samples every FPS from index 0 and shares one draw between the two
+regressor heads. Training (``net.train()``) draws a random FPS start per
+layer unless ``fps_deterministic`` is set, with the JAX package's sharing
+rule for the heads, and dropout; every draw comes from the generator given
+to ``forward``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -18,6 +24,8 @@ from ev2hands_tpu_torch.config import ModelConfig
 from ev2hands_tpu_torch.mano.layer import ManoParams, mano_forward
 from ev2hands_tpu_torch.model.layers import (
     BatchNorm,
+    Chain,
+    Dropout,
     FeaturePropagation,
     Pointwise,
     QueryConv,
@@ -27,7 +35,8 @@ from ev2hands_tpu_torch.model.layers import (
 )
 from ev2hands_tpu_torch.ops.fps import fps
 
-# Centroids of the regressor heads' sa1; one FPS draw of this size feeds both.
+# Centroids of the regressor heads' sa1; one FPS draw of this size feeds both
+# in eval.
 REGRESSOR_NPOINT = 128
 
 
@@ -37,28 +46,26 @@ class ManoRegressor(nn.Module):
 
     def __init__(self, in_channel: int = 4, n_pose_params: int = 6,
                  n_shape_params: int = 10, dropout: float = 0.3,
-                 dense_chunk: int = 32, pallas_grouping: bool = True,
-                 pallas_nb: int = 256, device="cuda"):
+                 device="cuda", **sa_options):
         super().__init__()
         self.n_pose_params = n_pose_params
         self.n_shape_params = n_shape_params
         self.sa1 = SetAbstractionMsg(
             REGRESSOR_NPOINT, (0.4, 0.8), (64, 128), in_channel,
-            ((128, 128, 256), (128, 196, 256)), dense_chunk=dense_chunk,
-            pallas_grouping=pallas_grouping, pallas_nb=pallas_nb, device=device,
-        )
+            ((128, 128, 256), (128, 196, 256)), device=device, **sa_options)
         self.sa2 = SetAbstractionAll(512 + 3, (256, 512), device)
         n_out = 3 + n_pose_params + n_shape_params + 3
-        self.mano_regressor = nn.Sequential(
+        self.mano_regressor = Chain(
             Pointwise(512, 1024, 0, device), nn.ReLU(),
-            BatchNorm(1024, device), nn.Dropout(dropout),
+            BatchNorm(1024, device), Dropout(dropout),
             Pointwise(1024, n_out, 0, device),
         )
 
-    def forward(self, xyz, features, fps_idx=None) -> Dict[str, torch.Tensor]:
-        l1_xyz, l1_points = self.sa1(xyz, features, fps_idx)
+    def forward(self, xyz, features, fps_idx=None, fps_start=None,
+                generator=None) -> Dict[str, torch.Tensor]:
+        l1_xyz, l1_points = self.sa1(xyz, features, fps_idx, fps_start)
         _, l2_points = self.sa2(l1_xyz, l1_points)
-        out = self.mano_regressor(l2_points[:, 0, :])
+        out = self.mano_regressor(l2_points[:, 0, :], generator)
         np_, ns = self.n_pose_params, self.n_shape_params
         return {
             "global_orient": out[:, :3],
@@ -70,68 +77,104 @@ class ManoRegressor(nn.Module):
 
 class TEHNet(nn.Module):
     """events [B, N, C_in] normalised ERPC cloud -> segmentation logits
-    [B, N, num_classes] and per-hand MANO parameters. Eval only."""
+    [B, N, num_classes] and per-hand MANO parameters."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), device="cuda"):
         super().__init__()
-        for g in (cfg.grouping_sa1, cfg.grouping_sa2, cfg.grouping_regressor,
-                  cfg.grouping):
-            if (g or cfg.grouping) != "dense":
-                raise NotImplementedError(
-                    f"grouping={g!r}: only the dense eval grouping is ported")
         self.cfg = cfg
-        sparse = dict(pallas_grouping=cfg.pallas_grouping,
-                      pallas_nb=cfg.pallas_nb, device=device)
+
+        def sa_options(grouping, dense_chunk):
+            return dict(
+                grouping=grouping or cfg.grouping, dense_chunk=dense_chunk,
+                pallas_grouping=cfg.pallas_grouping, pallas_nb=cfg.pallas_nb,
+                pallas_gather=cfg.pallas_gather,
+                pallas_gather_nb=cfg.pallas_gather_nb,
+                pallas_gather_bwd=cfg.pallas_gather_bwd,
+                pallas_gather_wide=cfg.pallas_gather_wide,
+                rank_ball_query=cfg.rank_ball_query,
+            )
+
         self.sa1 = SetAbstractionMsg(
             512, (0.1, 0.2, 0.4), (32, 64, 128), cfg.in_channels,
-            ((32, 32, 64), (64, 64, 128), (64, 96, 128)),
-            dense_chunk=cfg.dense_chunk, **sparse,
+            ((32, 32, 64), (64, 64, 128), (64, 96, 128)), device=device,
+            **sa_options(cfg.grouping_sa1, cfg.dense_chunk),
         )
         self.sa2 = SetAbstractionMsg(
             128, (0.4, 0.8), (64, 128), 320,
-            ((128, 128, 256), (128, 196, 256)),
-            dense_chunk=cfg.dense_chunk, **sparse,
+            ((128, 128, 256), (128, 196, 256)), device=device,
+            **sa_options(cfg.grouping_sa2, cfg.dense_chunk),
         )
         self.sa3 = SetAbstractionAll(512 + 3, (256, 512, 1024), device)
         self.fp3 = FeaturePropagation(512 + 1024, (256, 256), device)
         self.fp2 = FeaturePropagation(320 + 256, (256, 128), device)
         self.fp1 = FeaturePropagation(128, (128, 128, 256), device)
-        self.classifier = nn.Sequential(
+        self.classifier = Chain(
             Pointwise(256, 256, 1, device), nn.ReLU(), BatchNorm(256, device),
-            nn.Dropout(cfg.dropout_classifier),
+            Dropout(cfg.dropout_classifier),
             Pointwise(256, cfg.num_classes, 1, device),
         )
         self.left_query_conv = QueryConv(dropout=cfg.dropout_query, device=device)
         self.right_query_conv = QueryConv(dropout=cfg.dropout_query, device=device)
         reg = dict(in_channel=cfg.num_classes, dropout=cfg.dropout_regressor,
-                   dense_chunk=cfg.regressor_dense_chunk, **sparse)
+                   device=device,
+                   **sa_options(cfg.grouping_regressor, cfg.regressor_dense_chunk))
         self.left_mano_regressor = ManoRegressor(**reg)
         self.right_mano_regressor = ManoRegressor(**reg)
 
-    def forward(self, events: torch.Tensor) -> Dict:
+    def fps_starts(self, B: int, N: int,
+                   generator: Optional[torch.Generator]) -> list:
+        """The FPS start rows [B] of sa1, sa2 and the two regressor heads
+        (None = index 0). Training draws them unless ``fps_deterministic``;
+        with ``shared_head_fps`` one draw serves both heads."""
+        if not self.training or self.cfg.fps_deterministic:
+            return [None] * 4
+        if generator is None:
+            raise ValueError("TEHNet: training with random FPS starts needs a generator")
+
+        def draw(n):
+            return torch.randint(0, n, (B,), generator=generator,
+                                 device=generator.device, dtype=torch.int32)
+
+        starts = [draw(N), draw(self.sa1.npoint), draw(N)]
+        starts.append(starts[2] if self.cfg.shared_head_fps else draw(N))
+        return starts
+
+    def forward(self, events: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Dict:
+        """``generator`` gives the training draws (FPS starts, dropout); eval
+        and draw-free training take none."""
+        cfg = self.cfg
         l0_points = events
         l0_xyz = events[..., :3]
-        if self.cfg.mhlnes:
+        if cfg.mhlnes:
             # the time coordinate becomes the mean polarity channel
             l0_xyz = torch.cat(
                 [l0_xyz[..., :2], events[..., 3:].mean(dim=-1, keepdim=True)], -1)
-        l1_xyz, l1_points = self.sa1(l0_xyz, l0_points)
-        l2_xyz, l2_points = self.sa2(l1_xyz, l1_points)
+        starts = self.fps_starts(events.shape[0], events.shape[1], generator)
+        shared_head = starts[2] is starts[3]
+        starts = [None if s is None else s.to(events.device) for s in starts]
+        l1_xyz, l1_points = self.sa1(l0_xyz, l0_points, fps_start=starts[0])
+        l2_xyz, l2_points = self.sa2(l1_xyz, l1_points, fps_start=starts[1])
         l3_xyz, l3_points = self.sa3(l2_xyz, l2_points)
         l2_points = self.fp3(l2_xyz, l3_xyz, l2_points, l3_points)
         l1_points = self.fp2(l1_xyz, l2_xyz, l1_points, l2_points)
         l0_feats = self.fp1(l0_xyz, l1_xyz, None, l1_points)
 
-        seg_logits = self.classifier(l0_feats)
-        left_query = self.left_query_conv(l0_feats)
-        right_query = self.right_query_conv(l0_feats)
+        seg_logits = self.classifier(l0_feats, generator)
+        left_query = self.left_query_conv(l0_feats, generator)
+        right_query = self.right_query_conv(l0_feats, generator)
         left_features = attention_block(seg_logits, l0_feats, left_query)
         right_features = attention_block(seg_logits, l0_feats, right_query)
 
-        # eval samples from index 0, so both heads share one FPS draw
-        reg_fps_idx = fps(l0_xyz, REGRESSOR_NPOINT)
-        left = self.left_mano_regressor(l0_xyz, left_features, reg_fps_idx)
-        right = self.right_mano_regressor(l0_xyz, right_features, reg_fps_idx)
+        # one FPS for both heads when they start alike (eval, deterministic
+        # training) or share a draw; independent draws otherwise
+        reg_fps_idx = None
+        if shared_head:
+            reg_fps_idx = fps(l0_xyz, REGRESSOR_NPOINT, starts[2])
+        left = self.left_mano_regressor(l0_xyz, left_features, reg_fps_idx,
+                                        starts[2], generator)
+        right = self.right_mano_regressor(l0_xyz, right_features, reg_fps_idx,
+                                          starts[3], generator)
         return {"class_logits": seg_logits, "left": left, "right": right}
 
 
@@ -145,3 +188,28 @@ def apply_mano(hands: Dict[str, ManoParams], outputs: Dict) -> Dict:
                            p["betas"], p["transl"])
         out[side] = dict(p, vertices=res.vertices, j3d=res.joints)
     return out
+
+
+def batchnorm_cancelled_biases(net: nn.Module) -> set:
+    """Names of the biases in ``net`` (a TEHNet or one of its layers) whose
+    gradient is zero in a training step, because a train-mode BatchNorm
+    subtracts the batch mean after them: every conv bias that feeds a
+    BatchNorm directly (the set-abstraction and propagation chains, the
+    query heads' second conv), and sa3's last BatchNorm bias, which reaches
+    fp3's BatchNorm as a shift shared by every point of the batch (the
+    global max is positive in every channel). A framework computes
+    rounding noise there, so gradient comparisons leave these out."""
+    names = set()
+    for prefix, m in net.named_modules():
+        p = f"{prefix}." if prefix else ""
+        if isinstance(m, SetAbstractionMsg):
+            names |= {f"{p}conv_blocks.{i}.{j}.bias"
+                      for i, convs in enumerate(m.conv_blocks) for j in range(len(convs))}
+        elif isinstance(m, (SetAbstractionAll, FeaturePropagation)):
+            names |= {f"{p}mlp_convs.{j}.bias" for j in range(len(m.mlp_convs))}
+        elif isinstance(m, Chain):
+            names |= {f"{p}{j}.bias" for j in range(len(m) - 1)
+                      if isinstance(m[j + 1], BatchNorm) and hasattr(m[j], "bias")}
+        if isinstance(m, TEHNet):
+            names.add(f"{p}sa3.mlp_bns.{len(m.sa3.mlp_bns) - 1}.bias")
+    return names

@@ -20,6 +20,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
+# Every kernel source of the port: csrc/<name>.cu
+KERNELS = ("fps", "msg_sparse", "gather")
+
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
@@ -55,7 +58,7 @@ def _command(name: str, out: str) -> list:
             + ["-o", out, os.path.join(CSRC, f"{name}.cu")])
 
 
-def build(names: Iterable[str]) -> None:
+def build(names: Iterable[str] = KERNELS) -> None:
     """Compile the named kernels that are not built yet, one ``nvcc`` per
     source, all started together. Raises if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)

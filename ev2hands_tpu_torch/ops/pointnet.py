@@ -1,4 +1,5 @@
-"""Point-cloud ops of the inference path in plain PyTorch, channels-last.
+"""Point-cloud ops of the inference and training paths in plain PyTorch,
+channels-last.
 
 Counterpart of ``ev2hands_tpu/ops/pointnet.py``. Every function keeps the JAX
 package's formula and operand order, so neighbor selection (which compares
@@ -47,6 +48,66 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         points, 1, flat[..., None].expand(-1, -1, points.shape[-1])
     )
     return out.reshape(*idx.shape, points.shape[-1])
+
+
+def query_ball_point(
+    radius: float, nsample: int, sqrdists: torch.Tensor, rank: bool = True,
+) -> torch.Tensor:
+    """Radius neighborhood query from [B, S, N] squared distances ->
+    [B, S, nsample] int64 indices: each query's ``nsample`` lowest-index
+    in-radius points in ascending order, the slots past the in-radius count
+    backfilled with the first one, and N - 1 for a query with no in-radius
+    point.
+
+    ``rank=True`` reads the j-th selected index off the inclusive in-radius
+    rank (the count of points whose rank is still <= j, a ``searchsorted``
+    on the non-decreasing rank); ``rank=False`` takes the ``nsample``
+    smallest of the scores ``where(in radius, index, N)``. Both give the
+    same indices."""
+    B, S, N = sqrdists.shape
+    mask = sqrdists <= radius ** 2
+    j = torch.arange(nsample, device=sqrdists.device)
+    if rank:
+        ranks = torch.cumsum(mask, dim=-1)                  # [B, S, N]
+        cnt = ranks[..., -1:]
+        idx = torch.searchsorted(ranks, j.expand(B, S, nsample).contiguous(),
+                                 right=True)
+        idx = torch.where(j < cnt, idx, idx[..., :1])
+        return torch.clamp(idx, max=N - 1)
+    arange = torch.arange(N, device=sqrdists.device)
+    scores = torch.where(mask, arange, N)
+    k = min(nsample, N)
+    idx = torch.topk(scores, k, dim=-1, largest=False, sorted=True).values
+    first = idx[..., :1]
+    idx = torch.where(idx == N, first, idx)
+    if k < nsample:
+        idx = torch.cat([idx, first.expand(B, S, nsample - k)], dim=-1)
+    return torch.clamp(idx, max=N - 1)
+
+
+def query_ball_point_permuted(
+    radius: float, nsample: int, perm: torch.Tensor, sqrdists_p: torch.Tensor,
+) -> torch.Tensor:
+    """Ball query over a permuted point axis -> [B, S, nsample] int64
+    positions into that axis.
+
+    ``perm`` [B, N] maps a permuted position to its original index;
+    ``sqrdists_p`` holds the squared distances with columns in permuted
+    order. The selection is ``query_ball_point``'s by original index: the
+    score of an in-radius point is its original index (N otherwise), and a
+    stable ascending sort puts the ``nsample`` lowest first, ties in
+    position order as ``lax.top_k`` leaves them. The positions the scores
+    sit at are returned, backfilled with the first one."""
+    B, S, N = sqrdists_p.shape
+    scores = torch.where(sqrdists_p <= radius ** 2, perm.long()[:, None, :], N)
+    vals, pos = torch.sort(scores, dim=-1, stable=True)
+    k = min(nsample, N)
+    vals, pos = vals[..., :k], pos[..., :k]
+    first = pos[..., :1]
+    pos = torch.where(vals == N, first, pos)
+    if k < nsample:
+        pos = torch.cat([pos, first.expand(B, S, nsample - k)], dim=-1)
+    return torch.clamp(pos, max=N - 1)
 
 
 def farthest_point_sample(

@@ -137,7 +137,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import ev2hands_tpu_torch.serve, ev2hands_tpu_torch.weights\n"
-        "import ev2hands_tpu_torch.ops._build\n"
+        "import ev2hands_tpu_torch.ops._build, ev2hands_tpu_torch.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ev2hands_tpu')]\n"
         "print(bad)\n"

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from ev2hands_tpu_torch.ops import fps as tf
+from ev2hands_tpu_torch.ops import gather as tga
 from ev2hands_tpu_torch.ops import grouping as tg
 
 pytestmark = pytest.mark.cuda
@@ -94,3 +95,71 @@ def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
     sel = torch.ones(1, 8, 512, device=cuda)
     with pytest.raises(ValueError):
         tg.msg_scale_sparse(folded, sel, tg.tile_activity(sel, 256), 256)
+    idx = torch.zeros(1, 8, 4, dtype=torch.int32, device=cuda)
+    act = tga.pos_tile_activity(idx, 128, 256)
+    with pytest.raises(ValueError):   # float64 source
+        tga.onehot_gather(torch.zeros(1, 256, 3, dtype=torch.float64,
+                                      device=cuda), idx, act)
+    with pytest.raises(ValueError):   # N not a multiple of nb
+        tga.onehot_gather(torch.zeros(1, 200, 3, device=cuda), idx, act)
+
+
+def _gather_case(rng, B, N, S, K, C, device):
+    """Clustered, heavily duplicated positions (the backfill pattern of a
+    ball query) and a source of C channels."""
+    src = torch.from_numpy(rng.randn(B, N, C).astype(np.float32)).to(device)
+    base = rng.randint(0, N, (B, S, 1))
+    idx = np.clip(base + rng.randint(-40, 41, (B, S, K)), 0, N - 1)
+    idx[:, :, K // 2:] = idx[:, :, :1]
+    return src, torch.from_numpy(idx.astype(np.int32)).to(device)
+
+
+# (B, N, S, K, C): one small shape, and the training path's sa1 and sa2
+GATHER_SHAPES = [(2, 256, 16, 24, 45), (8, 2048, 512, 224, 8),
+                 (8, 512, 128, 192, 323)]
+
+
+@pytest.mark.parametrize("shape", GATHER_SHAPES)
+def test_onehot_gather_kernel_bitwise(cuda, shape):
+    B, N, S, K, C = shape
+    src, idx = _gather_case(np.random.RandomState(C), B, N, S, K, C, cuda)
+    act = tga.pos_tile_activity(idx, 128, N)
+    launches = tga.onehot_gather.launches
+    got = tga.onehot_gather(src, idx, act)
+    torch.cuda.synchronize()
+    assert tga.onehot_gather.launches == launches + 1
+    assert torch.equal(got, tga.onehot_gather_plain(src, idx))
+
+
+@pytest.mark.parametrize("shape", GATHER_SHAPES)
+def test_onehot_scatter_add_kernel_matches_plain(cuda, shape):
+    """Within 1e-5 * (1 + the sum of |contributions|) per element: f32
+    atomics add in another order than index_add_."""
+    B, N, S, K, C = shape
+    rng = np.random.RandomState(C + 1)
+    _, idx = _gather_case(rng, B, N, S, K, C, cuda)
+    g = torch.from_numpy(rng.randn(B, S, K, C).astype(np.float32)).to(cuda)
+    act = tga.pos_tile_activity(idx, 128, N)
+    launches = tga.onehot_scatter_add.launches
+    got = tga.onehot_scatter_add(g, idx, act, N)
+    torch.cuda.synchronize()
+    assert tga.onehot_scatter_add.launches == launches + 1
+    ref = tga.onehot_scatter_add_plain(g, idx, N)
+    bound = 1e-5 * (1 + tga.onehot_scatter_add_plain(g.abs(), idx, N))
+    assert ((got - ref).abs() <= bound).all()
+
+
+def test_grouped_gather_kernel_backward_matches_plain(cuda):
+    """grouped_gather's gradient with the scatter-add kernel against the
+    plain scatter-add, within 1e-5 * (1 + the sum of |contributions|)
+    (summation order)."""
+    src, idx = _gather_case(np.random.RandomState(3), 2, 512, 64, 96, 11, cuda)
+    act = tga.pos_tile_activity(idx, 128, 512)
+    ct = torch.randn(2, 64, 96, 11, device=cuda)
+    grads = {}
+    for bwd in ("xla", "pallas"):
+        s = src.clone().requires_grad_(True)
+        (tga.grouped_gather(s, idx, act, bwd=bwd) * ct).sum().backward()
+        grads[bwd] = s.grad
+    bound = 1e-5 * (1 + tga.onehot_scatter_add_plain(ct.abs(), idx, 512))
+    assert ((grads["pallas"] - grads["xla"]).abs() <= bound).all()

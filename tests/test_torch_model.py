@@ -160,8 +160,6 @@ def test_attention_block_and_batchnorm_match_jax():
         tl.attention_block(_t(key), _t(value), _t(query)).numpy(),
         np.asarray(jl.attention_block(key, value, query)), rtol=1e-5, atol=1e-6)
     bn = tl.BatchNorm(16, device="cpu").eval()
-    with pytest.raises(RuntimeError):
-        tl.BatchNorm(16, device="cpu")(_t(value))   # training is not ported
     jbn = jl._bn(False, "bn")
     variables = numpy_variables(jbn, rng, value)
     with torch.no_grad():
@@ -172,6 +170,17 @@ def test_attention_block_and_batchnorm_match_jax():
         np.testing.assert_allclose(
             bn(_t(value)).numpy(), np.asarray(jbn.apply(variables, value)),
             rtol=1e-6, atol=1e-6)
+        # training mode: batch statistics, and flax's running-average update
+        # (the biased batch variance, momentum 0.9)
+        got = bn.train()(_t(value))
+        ref, upd = jl._bn(True, "bn").apply(variables, value,
+                                            mutable=["batch_stats"])
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-5)
+        for name, key in (("running_mean", "mean"), ("running_var", "var")):
+            np.testing.assert_allclose(
+                getattr(bn, name).numpy(),
+                np.asarray(upd["batch_stats"][key]), rtol=1e-6, atol=1e-6)
 
 
 # --- the whole slice: ERPC -> TEHNet eval -> MANO, B=2, N=256 -------------
