@@ -9,9 +9,16 @@ Phases (any failed check raises, so the script exits non-zero):
      for sm_90a, one process per source, timed;
   3. the FPS kernel against its plain version on ERPC clouds at B=16, at the
      three serving shapes (2048->512, 2048->128, 512->128): equal indices;
-  4. the block-sparse grouping kernel against its plain version on the
-     three sa1 scales, inputs from the real preparation at B=16, S=512,
-     N=2048, nb=256: max abs diff <= 1e-4; prints each scale's tile activity;
+  4. the block-sparse grouping kernel, one scale a launch (msg_scale_sparse),
+     against its plain version on the three sa1 scales, inputs from the real
+     preparation at B=16, S=512, N=2048, nb=256: max abs diff <= 1e-4;
+     prints each scale's tile activity;
+ 4b. the same kernel with all three sa1 scales in one launch
+     (msg_fused_scales_sparse) on the same inputs through the layer's fused
+     preparation
+     (stacked scales, union tile activity): max abs diff <= 1e-4 against its
+     plain version, and its difference from phase 4's three sections;
+     prints the union activity and each scale's selected pairs;
   5. serving: InferencePipeline at full TEHNet width (B=16, N=2048, seeded
      weights, synthetic MANO) answers 4 requests with exactly 3 FPS and 3
      grouping launches per request and finite outputs; then 2 windows of one
@@ -42,9 +49,22 @@ Phases (any failed check raises, so the script exits non-zero):
  11. training windows/s at B=8 (CUDA events over 10 steps after 2 warm-ups,
      a new polarity flip per step), the peak device memory of those steps,
      and the top device kernels of one step;
- 12. a `kernels` JSON line (times from CUDA events, bounds from this run's
+ 12. Ev2Hands-S evaluation: evaluate_dataset at full TEHNet width in the
+     fused configuration (pallas_fused_msg=True, B=32, N=2048, seeded
+     weights, synthetic MANO) on synthetic rows held in memory (65,536
+     events, 16 frames), 8 batches, with exactly 3 FPS, 1 fused grouping and
+     no per-scale grouping launch a batch, a finite report over 256 frames,
+     the first batch's predicted joints and vertices of 2 windows against
+     the port on the CPU with the same weights and draws (atol 1e-4 m), and
+     the evaluation windows/s;
+ 13. Ev2Hands-R evaluation: evaluate_recording on a synthetic recording
+     written to a temporary directory, B=32, 96 windows, with the same
+     launch counts a batch, a non-collision score in [0, 100], a finite
+     MPJPE, the end-to-end windows/s and the shares of the wall time spent
+     in host windowing and in the collision score;
+ 14. a `kernels` JSON line (times from CUDA events, bounds from this run's
      inputs);
- 13. last line: {"ok": true, "device": {...}}.
+ 15. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result without a CUDA device, or without the
 repository's package beside it.
@@ -52,8 +72,11 @@ repository's package beside it.
 
 import collections
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
@@ -63,12 +86,46 @@ B, N = 16, 2048
 REQUESTS = 4
 TRAIN_B = 8
 TRAIN_STEPS = 4
+EVAL_B = 32
+EVAL_BATCHES = 8
+REAL_WINDOWS = 96
 # the one-hot gathers of a training step, in call order
 GATHER_LAYERS = ("sa1", "sa2", "left regressor sa1", "right regressor sa1")
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port, by its name in the kernels line;
+    each counts its own launches."""
+    from ev2hands_tpu_torch.ops import fps as kfps
+    from ev2hands_tpu_torch.ops import gather as kga
+    from ev2hands_tpu_torch.ops import grouping as kgrp
+
+    return {"fps": kfps.fps, "msg_sparse": kgrp.msg_scale_sparse,
+            "msg_fused_sparse": kgrp.msg_fused_scales_sparse,
+            "onehot_gather": kga.onehot_gather,
+            "onehot_scatter_add": kga.onehot_scatter_add}
+
+
+def reset_launches():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def check_launches(what, launches, per_unit, units):
+    """Every kernel launched exactly ``per_unit`` times per unit of work
+    (0 where ``per_unit`` does not name it)."""
+    for name, n in launches.items():
+        want = per_unit.get(name, 0) * units
+        if n != want:
+            raise AssertionError(f"{what}: {name} launched {n} times, want {want}")
 
 
 def cuda_ms(torch, fn, iters, warmup=2):
@@ -166,6 +223,52 @@ def where_the_time_goes(torch, pipe, requests):
         f"{100 * busy_ms / total_ms:.1f}% busy of {total_ms:.3f} ms")
     for name, ms, count in kernels[:12]:
         log(f"  kernel {ms:9.3f} ms x{count:<5d} {name[:100]}")
+
+
+def fused_check(torch, kgrp, sa1, new_xyz, sq, perm, xyz_p, pts_p, k2_cat):
+    """Phase 4b: the fused multi-scale kernel against its plain version and
+    against the per-scale kernel's sections ``k2_cat`` -> its kernels-line
+    row."""
+    stacked, sel_all, act, sections, blocks = sa1.fused_scale_inputs(
+        new_xyz, sq, perm, xyz_p, pts_p)
+    nb = sa1.pallas_nb
+
+    def kernel():
+        return kgrp.msg_fused_scales_sparse(stacked, sel_all, act, sections, nb,
+                                            blocks)
+
+    def plain():
+        return kgrp.msg_fused_scales_sparse_plain(stacked, sel_all, act, sections, nb)
+
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    vs_k2 = (got - k2_cat).abs().max().item()
+    log(f"msg_fused_sparse: max abs diff {err:.3g} from its plain version, "
+        f"{vs_k2:.3g} from the per-scale kernel's three sections")
+    if not err <= 1e-4:
+        raise AssertionError(f"fused grouping: max abs diff {err}")
+    selected = [int(sel_all[:, r].sum().item()) for r in range(len(sections))]
+    ops = sum(n * 2 * (c1 * c2 + c2 * c3)
+              for n, (c1, c2), c3 in zip(selected, blocks, sections))
+    # R mask slices of nb floats per union-active tile; u, v, the diagonal
+    # weight blocks, the biases, act and the output once each
+    active_tiles = int(act.sum().item())
+    weights = sum(c1 * c2 + c2 * c3 for (c1, c2), c3 in zip(blocks, sections))
+    nbytes = 4 * (len(sections) * nb * active_tiles + weights
+                  + sum(t.numel() for t in (stacked.u, stacked.v, stacked.b2,
+                                            stacked.b3, act, got)))
+    row = dict(widths=[[c1, c2, c3] for (c1, c2), c3 in zip(blocks, sections)],
+               union_tile_activity=act.float().mean().item(),
+               selected_pairs=selected, max_abs_err=err, max_abs_diff_vs_k2=vs_k2,
+               ms=cuda_ms(torch, kernel, 20), plain_ms=cuda_ms(torch, plain, 3, 1),
+               ops=ops, bytes=nbytes)
+    row["bound_ms"], row["bound_by"] = bound(ops, nbytes)
+    log(f"msg_fused_sparse {row['widths']}: union tile activity "
+        f"{row['union_tile_activity']:.4f}, selected pairs per scale {selected}; "
+        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return row
 
 
 def bound(ops, nbytes):
@@ -297,9 +400,7 @@ def training_phases(torch, np, dev, state):
     from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
     from ev2hands_tpu_torch.model import layers as klayers
     from ev2hands_tpu_torch.model.tehnet import TEHNet, batchnorm_cancelled_biases
-    from ev2hands_tpu_torch.ops import fps as kfps
     from ev2hands_tpu_torch.ops import gather as kga
-    from ev2hands_tpu_torch.ops import grouping as kgrp
 
     cfg = DEFAULT_CONFIG.replace(model=ModelConfig(
         n_points=N, pallas_gather=True, pallas_gather_bwd=True))
@@ -395,12 +496,8 @@ def training_phases(torch, np, dev, state):
     del captured
 
     # 9. the training run through the entry point, counted
-    counters = {"fps": kfps.fps, "msg_sparse": kgrp.msg_scale_sparse,
-                "onehot_gather": kga.onehot_gather,
-                "onehot_scatter_add": kga.onehot_scatter_add}
     before = {k: v.detach().clone() for k, v in net.state_dict().items()}
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for i in range(TRAIN_STEPS):
         losses = step(batches[1 + i], gen)
@@ -415,15 +512,13 @@ def training_phases(torch, np, dev, state):
         if not losses["loss_interpen"] > 0:
             raise AssertionError(f"train step {i}: no collision term")
     train_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_launches()
     log(f"training: {TRAIN_STEPS} steps of {TRAIN_B} windows in {train_s:.3f} s; "
         f"launches {launches}")
     # sa1's source is the input cloud: no scatter-add for it, three a step
-    want = {"fps": 4, "msg_sparse": 0, "onehot_gather": 4, "onehot_scatter_add": 3}
-    for name, per_step in want.items():
-        if launches[name] != per_step * TRAIN_STEPS:
-            raise AssertionError(f"{name}: {launches[name]} launches in "
-                                 f"{TRAIN_STEPS} steps, want {per_step} a step")
+    check_launches("training", launches,
+                   {"fps": 4, "onehot_gather": 4, "onehot_scatter_add": 3},
+                   TRAIN_STEPS)
 
     # 10. kernel route vs plain route, and card vs CPU: one step each from the
     # same weights and given draws, deterministic FPS, no dropout
@@ -497,6 +592,145 @@ def training_phases(torch, np, dev, state):
     for name, ms, count in kernels[:10]:
         log(f"  kernel {ms:9.3f} ms x{count:<5d} {name[:100]}")
     return gather_rows, scatter_rows, launches
+
+
+def evaluation_phases(torch, np, dev, state):
+    """Phases 12-13: both evaluation entry points on the card in the fused
+    configuration -> their launches, summed."""
+    import dataclasses
+
+    from ev2hands_tpu_torch import evaluate as kev
+    from ev2hands_tpu_torch import evaluate_real as kevr
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.events.erpc import rasterize_erpc, resample_draws
+    from ev2hands_tpu_torch.events.real_streams import (
+        RealStream,
+        sliding_window_batches,
+        write_synthetic_ev2hands_r,
+    )
+    from ev2hands_tpu_torch.events.streams import (
+        Ev2HandSReader,
+        synthetic_ev2hands_s,
+    )
+    from ev2hands_tpu_torch.model.tehnet import TEHNet
+    from ev2hands_tpu_torch.train import build_collision_context, build_hands
+
+    cfg = DEFAULT_CONFIG.replace(
+        model=ModelConfig(n_points=N, pallas_fused_msg=True),
+        train=dataclasses.replace(DEFAULT_CONFIG.train, eval_batch_size=EVAL_B))
+    nets, hands = {}, {}
+    for device in ("cuda", "cpu"):
+        nets[device] = TEHNet(cfg.model, device=device)
+        nets[device].load_state_dict(state, strict=True)
+        hands[device] = build_hands(cfg, device=device)
+    per_batch = {"fps": 3, "msg_fused_sparse": 1}
+    rows, annotations = synthetic_ev2hands_s(n_events=65536, n_frames=16)
+    reader = Ev2HandSReader.from_rows(rows, annotations, N)
+
+    # 12. Ev2Hands-S: 8 batches through the entry point, counted
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = kev.evaluate_dataset(nets["cuda"], hands["cuda"], reader, cfg,
+                                  max_frames=EVAL_B * EVAL_BATCHES, device="cuda")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = read_launches()
+    frames = report["frames"]
+    log(f"evaluation (Ev2Hands-S): {frames} windows in {eval_s:.3f} s = "
+        f"{frames / eval_s:.2f} windows/s at B={EVAL_B} (host reader and metrics "
+        f"included); launches {launches}")
+    log("evaluation report: " + json.dumps(
+        {k: report[k] for k in ("auc", "eval_score", "mpjpe_mm", "mpvpe_mm", "frames")}))
+    check_launches("evaluation (Ev2Hands-S)", launches, per_batch, EVAL_BATCHES)
+    if frames != EVAL_B * EVAL_BATCHES or not all(
+            np.isfinite(v) for v in (report["mpjpe_mm"], report["mpvpe_mm"],
+                                     *report["auc"].values(),
+                                     *sum(report["pck3d"].values(), []))):
+        raise AssertionError("evaluation (Ev2Hands-S): the report is not finite "
+                             f"over {EVAL_B * EVAL_BATCHES} frames")
+
+    # the card against the port on the CPU: the first batch, given draws
+    batch = next(reader.batches(EVAL_B, shuffle=False, max_batches=1))
+    _, _, n_valid = rasterize_erpc(torch.from_numpy(batch["events"]),
+                                   torch.from_numpy(batch["labels"]),
+                                   cfg.sensor.width, cfg.sensor.height)
+    draws = resample_draws(n_valid, N, torch.Generator().manual_seed(101))
+    steps = {d: kev.make_full_eval_step(nets[d], hands[d], cfg, device=d)
+             for d in ("cuda", "cpu")}
+    card = steps["cuda"](batch, draws=draws)
+    step_ms = cuda_ms(torch, lambda: steps["cuda"](batch, draws=draws), 3, 1)
+    log(f"evaluation step (Ev2Hands-S): {step_ms:.3f} ms per batch of {EVAL_B} = "
+        f"{EVAL_B / (step_ms / 1e3):.2f} windows/s (CUDA events, given draws)")
+    two = {k: ({kk: vv[:2] for kk, vv in v.items()} if isinstance(v, dict) else v[:2])
+           for k, v in batch.items()}
+    t0 = time.perf_counter()
+    cpu = steps["cpu"](two, draws=draws[:2])
+    cpu_s = time.perf_counter() - t0
+    diffs = {name: ((c[:2].cpu() - p) / 1000).abs().max().item()
+             for name, c, p in zip(("pred joints", "pred vertices"),
+                                   (card[0], card[2]), (cpu[0], cpu[2]))}
+    log(f"evaluation card vs CPU (2 windows, CPU run {cpu_s:.1f} s): " + ", ".join(
+        f"{k} {v:.3g} m" for k, v in diffs.items()))
+    for k, v in diffs.items():
+        if not v <= 1e-4:
+            raise AssertionError(f"evaluation card vs CPU: {k} differ by {v} m")
+    del card, cpu, nets["cpu"]
+
+    # 13. Ev2Hands-R: a synthetic recording, 96 windows, counted; the
+    # collision score's device time from CUDA events around each call
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        path = write_synthetic_ev2hands_r(os.path.join(tmp, "subject.pickle"))
+        stream = RealStream(path, cfg.sensor.width, cfg.sensor.height)
+        t0 = time.perf_counter()
+        host = list(sliding_window_batches(stream, EVAL_B, REAL_WINDOWS))
+        host_s = time.perf_counter() - t0
+        ctx = build_collision_context(hands["cuda"])
+        step = kevr.make_real_eval_step(nets["cuda"], hands["cuda"], ctx, cfg,
+                                        device="cuda")
+        timed = []
+        real_collision = kevr.collision_percentage
+
+        def collision_timed(*args, **kwargs):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = real_collision(*args, **kwargs)
+            b.record()
+            timed.append((a, b))
+            return out
+
+        kevr.collision_percentage = collision_timed
+        reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real = kevr.evaluate_recording(step, stream, cfg, EVAL_B,
+                                           max_windows=REAL_WINDOWS, device="cuda")
+            torch.cuda.synchronize()
+            real_s = time.perf_counter() - t0
+        finally:
+            kevr.collision_percentage = real_collision
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    real_launches = read_launches()
+    collision_s = sum(a.elapsed_time(b) for a, b in timed) / 1e3
+    log(f"evaluation (Ev2Hands-R): {real['frames']} windows in {real_s:.3f} s, "
+        f"{real['windows_per_sec_end_to_end']:.2f} windows/s end to end at "
+        f"B={EVAL_B}; host windowing alone {host_s:.3f} s "
+        f"({100 * host_s / real_s:.1f}% of the wall time, overlapped by the "
+        f"prefetcher), collision score {collision_s:.3f} s of device time "
+        f"({100 * collision_s / real_s:.1f}%); launches {real_launches}")
+    log("evaluation report (Ev2Hands-R): " + json.dumps(
+        {k: real[k] for k in ("frames", "mpjpe_mm", "non_collision_pct", "auc")}))
+    n_batches = len(host)
+    check_launches("evaluation (Ev2Hands-R)", real_launches, per_batch, n_batches)
+    if real["frames"] != REAL_WINDOWS or not np.isfinite(real["mpjpe_mm"]) \
+            or not 0.0 <= real["non_collision_pct"] <= 100.0:
+        raise AssertionError(f"evaluation (Ev2Hands-R): bad report {real['frames']} "
+                             f"frames, MPJPE {real['mpjpe_mm']}, non-collision "
+                             f"{real['non_collision_pct']}")
+    return {k: launches[k] + real_launches[k] for k in launches}
 
 
 def main() -> int:
@@ -602,7 +836,7 @@ def main() -> int:
         sq = square_distance(new_xyz, l0)
         perm = kgrp.morton_perm(l0)
         xyz_p, pts_p = index_points(l0, perm), index_points(events, perm)
-        grp_rows = []
+        grp_rows, k2_outs = [], []
         for i, (r, k) in enumerate(zip(sa1.radius_list, sa1.nsample_list)):
             folded, sel_p, act = sa1.sparse_scale_inputs(
                 i, new_xyz, sq, r, k, perm, xyz_p, pts_p)
@@ -613,6 +847,7 @@ def main() -> int:
             err = (got - ref).abs().max().item()
             if not err <= 1e-4:
                 raise AssertionError(f"grouping scale {i}: max abs diff {err}")
+            k2_outs.append(got)
             C1, C2 = folded.W2.shape
             C3 = folded.W3.shape[1]
             n_sel = int(sel_p.sum().item())
@@ -641,12 +876,16 @@ def main() -> int:
                 f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
 
+        # 4b. the fused kernel on the same inputs, the layer's fused preparation
+        fused_rows = [fused_check(torch, kgrp, sa1, new_xyz, sq, perm, xyz_p, pts_p,
+                                  torch.cat(k2_outs, dim=-1))]
+        del k2_outs
+
         # 5. serving: 4 requests through the entry point, counted
         gen = torch.Generator(device=dev).manual_seed(1)
         requests = [(raw0, lab0, None)] + [raw_request(np, s) + (gen,)
                                            for s in range(1, REQUESTS)]
-        kfps.fps.launches = 0
-        kgrp.msg_scale_sparse.launches = 0
+        reset_launches()
         outs = []
         t0 = time.perf_counter()
         for j, (raw, lab, g) in enumerate(requests):
@@ -654,13 +893,10 @@ def main() -> int:
                              draws=draws0 if j == 0 else None))
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        launches = {"fps": kfps.fps.launches,
-                    "msg_sparse": kgrp.msg_scale_sparse.launches}
+        launches = read_launches()
         log(f"serving: {REQUESTS} requests of {B} windows in {serve_s:.3f} s; "
             f"launches {launches}")
-        for name, n in launches.items():
-            if n != 3 * REQUESTS:
-                raise AssertionError(f"{name}: {n} launches, want {3 * REQUESTS}")
+        check_launches("serving", launches, {"fps": 3, "msg_sparse": 3}, REQUESTS)
         for out in outs:
             for key, val in out.items():
                 if not torch.isfinite(val).all():
@@ -712,18 +948,24 @@ def main() -> int:
     # 8-11. training
     gather_rows, scatter_rows, train_launches = training_phases(torch, np, dev, state)
 
-    # 12. the kernels line. ms, plain_ms, bound_ms and library_ms add the
+    # 12-13. evaluation
+    eval_launches = evaluation_phases(torch, np, dev, state)
+
+    # 14. the kernels line. ms, plain_ms, bound_ms and library_ms add the
     # calls of one pass: the three serving FPS shapes and sa1 scales of a
-    # forward, the four gathers and three scatter-adds of a training step.
-    # launches: both driven paths, serving's 4 requests and training's 4
-    # steps, also listed by path.
+    # forward, the fused sa1 call of an evaluation forward, the four gathers
+    # and three scatter-adds of a training step. launches: every driven
+    # path (serving's 4 requests, training's 4 steps, the evaluations' 8 + 3
+    # batches), also listed by path.
+    by_path = {"serving": launches, "training": train_launches,
+               "evaluation": eval_launches}
+
     def entry(name, source, replaces, rows, err, library=False):
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches.get(name, 0) + train_launches[name],
-            "launches_by_path": {"serving": launches.get(name, 0),
-                                 "training": train_launches[name]},
+            "launches": sum(path[name] for path in by_path.values()),
+            "launches_by_path": {k: path[name] for k, path in by_path.items()},
             "max_abs_err": err,
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -736,9 +978,12 @@ def main() -> int:
         entry("fps", "ev2hands_tpu_torch/csrc/fps.cu",
               "ev2hands_tpu/ops/pallas_ops.py:56", fps_rows,
               max(r["max_abs_err"] for r in fps_rows)),
-        entry("msg_sparse", "ev2hands_tpu_torch/csrc/msg_sparse.cu",
+        entry("msg_sparse", "ev2hands_tpu_torch/csrc/msg_sparse_fused.cu",
               "ev2hands_tpu/ops/pallas_grouping.py:595", grp_rows,
               max(r["max_abs_err"] for r in grp_rows)),
+        entry("msg_fused_sparse", "ev2hands_tpu_torch/csrc/msg_sparse_fused.cu",
+              "ev2hands_tpu/ops/pallas_grouping.py:823", fused_rows,
+              fused_rows[0]["max_abs_err"]),
         entry("onehot_gather", "ev2hands_tpu_torch/csrc/gather.cu",
               "ev2hands_tpu/ops/pallas_gather.py:142", gather_rows,
               max(r["max_abs_err"] for r in gather_rows), library=True),

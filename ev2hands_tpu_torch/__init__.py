@@ -2,7 +2,8 @@
 
 The JAX package ``ev2hands_tpu`` is the reference; this package imports
 nothing of it and nothing of JAX. Entry points: ``serve.InferencePipeline``
-(inference) and ``train.make_train_step`` (one training step).
+(inference), ``train.make_train_step`` (one training step), and
+``evaluate`` / ``evaluate_real`` (Ev2Hands-S and Ev2Hands-R evaluation).
 Hand-written kernels live in ``csrc/`` and are built on first use
 (``ops/_build.py``).
 """

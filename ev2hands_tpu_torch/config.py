@@ -1,5 +1,5 @@
 """Configuration of the PyTorch port: the fields of ``ev2hands_tpu.config``
-that the inference and training slices read, copied so that the port
+that the inference, training and evaluation slices read, copied so that the port
 imports nothing of the JAX package. Field names and defaults are the JAX
 package's."""
 
@@ -72,6 +72,10 @@ class ModelConfig:
     pallas_gather_bwd: bool = False
     # Take the one-hot gather for wide sources too (3 * (D + 3) > 128, sa2).
     pallas_gather_wide: bool = True
+    # Run all scales of a set-abstraction layer in one block-sparse pass
+    # (ops/grouping.msg_fused_scales_sparse: block-diagonal stacked weights,
+    # union tile activity) when every scale takes the block-sparse route.
+    pallas_fused_msg: bool = False
     dropout_classifier: float = 0.3
     dropout_query: float = 0.1
     dropout_regressor: float = 0.3
@@ -94,12 +98,15 @@ class LossConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training hyperparameters read by the training step."""
+    """Training and evaluation hyperparameters read by the training step
+    and the evaluation entry points."""
 
     batch_size: int = 8
     learning_rate: float = 1e-3
     weight_decay: float = 0.0
+    eval_batch_size: int = 32
     seed: int = 0
+    data_root: str = "data/Ev2Hands-S"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,7 +7,9 @@ Counterpart of ``ev2hands_tpu/events/erpc.py``: raw windows [B, N, 4] =
 to ``n_out`` rows, and normalised (x, y by sensor size, t by the window's
 min/max; the counts stay raw). A pixel's label is the largest label of its
 events. Every random draw comes from a ``torch.Generator`` or is given, so
-a test can hand the port the JAX package's draws.
+a test can hand the port the JAX package's draws. Real recordings
+(``erpc_real_batch_transform``) come as padded windows with a validity
+mask, timestamps in ms and no labels.
 
 Device independence: the per-pixel time sum is taken in float64, exact for
 float32 inputs, and rounded once, so the CPU and the card give the same
@@ -32,10 +34,14 @@ def rasterize_erpc(
     labels: torch.Tensor,   # [B, N] int
     width: int,
     height: int,
-    time_scale: float = 1e-6,   # ns -> ms
+    time_scale: float = 1e-6,   # ns -> ms; 1.0 for timestamps in ms
+    event_valid: Optional[torch.Tensor] = None,   # [B, N] bool: real events
+    max_pixels: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (feats [B, N, 5], pixel_labels [B, N] int32, n_valid [B] int32):
-    the occupied pixels of each window in row-major order, zero-padded.
+    """-> (feats [B, P, 5], pixel_labels [B, P] int32, n_valid [B] int32):
+    the first P = ``max_pixels`` (default N) occupied pixels of each window
+    in row-major order, zero-padded. Events that ``event_valid`` marks as
+    padding go to a dummy pixel past the sensor and are dropped.
 
     Events are sorted by the packed key pixel * 2^ceil(log2 N) + index (ties
     keep event order), runs of equal pixel become rows."""
@@ -52,6 +58,8 @@ def rasterize_erpc(
     x = events[..., 0].to(torch.int32)
     y = events[..., 1].to(torch.int32)
     pix = y * width + x
+    if event_valid is not None:
+        pix = torch.where(event_valid.to(dev), pix, num_pixels)  # sorts last
     packed = pix * shift + torch.arange(N, dtype=torch.int32, device=dev)
     spacked = torch.sort(packed, dim=-1).values
     perm = (spacked & (shift - 1)).long()
@@ -96,6 +104,10 @@ def rasterize_erpc(
     )
     feats = torch.where(valid[..., None], feats, 0.0)
     pixel_labels = torch.where(valid, lab.to(torch.int32), 0)
+    if max_pixels is not None and max_pixels < N:
+        # the first max_pixels pixel runs, as the reference's nonzero slice
+        feats, pixel_labels, valid = (
+            feats[:, :max_pixels], pixel_labels[:, :max_pixels], valid[:, :max_pixels])
     n_valid = valid.sum(dim=-1, dtype=torch.int32)
     return feats, pixel_labels, n_valid
 
@@ -221,6 +233,8 @@ def erpc_batch_transform(
     time_scale: float = 1e-6,
     augment: bool = False,
     noise: Optional[NoiseDraws] = None,
+    event_valid: Optional[torch.Tensor] = None,
+    max_pixels: Optional[int] = None,
 ) -> ErpcWindow:
     """Raw windows -> normalised ERPC clouds [B, n_out, 5].
 
@@ -228,9 +242,11 @@ def erpc_batch_transform(
     ``generator``) to windows whose gate fires. The resample over the valid
     pixel rows and the active noise rows takes either ``draws`` [B, n_out]
     (ints in [0, max(n_valid + noise_count, 1)), e.g. the JAX package's
-    ``randint`` draws) or draws from ``generator``."""
+    ``randint`` draws) or draws from ``generator``. ``event_valid`` and
+    ``max_pixels`` go to ``rasterize_erpc``."""
     feats, pix_labels, n_valid = rasterize_erpc(
-        events, labels, width, height, time_scale=time_scale)
+        events, labels, width, height, time_scale=time_scale,
+        event_valid=event_valid, max_pixels=max_pixels)
     B, P, _ = feats.shape
     n_noise = n_out // 32
     if augment:
@@ -257,3 +273,25 @@ def erpc_batch_transform(
         feats, pix_labels, n_valid, P, draws.to(events.device))
     return ErpcWindow(events=normalize_erpc(sampled, width, height),
                       labels=sampled_labels)
+
+
+def erpc_real_batch_transform(
+    events: torch.Tensor,        # [B, N, 4] padded windows: x, y, t in ms, p
+    event_valid: torch.Tensor,   # [B, N] bool
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[torch.Tensor] = None,
+    width: int = 346,
+    height: int = 260,
+    n_out: int = 2048,
+    max_pixels: Optional[int] = None,
+) -> ErpcWindow:
+    """Real-data transform: masked variable-length windows with millisecond
+    timestamps, no labels and no augmentation. ``max_pixels`` bounds the
+    occupied pixels kept per window (default ``min(N, max(2 * n_out,
+    2048))``, the JAX package's)."""
+    B, N, _ = events.shape
+    mp = max_pixels or min(N, max(n_out * 2, 2048))
+    labels = torch.zeros((B, N), dtype=torch.int32, device=events.device)
+    return erpc_batch_transform(
+        events, labels, generator, draws=draws, width=width, height=height,
+        n_out=n_out, time_scale=1.0, event_valid=event_valid, max_pixels=mp)

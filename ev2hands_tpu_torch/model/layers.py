@@ -29,8 +29,10 @@ from ev2hands_tpu_torch.ops.grouping import (
     dense_selection_mask,
     fold_scale_params,
     morton_perm,
+    msg_fused_scales_sparse,
     msg_scale_sparse,
     permute_columns,
+    stack_folded_scales,
     tile_activity,
 )
 from ev2hands_tpu_torch.ops.pointnet import (
@@ -163,7 +165,9 @@ class SetAbstractionMsg(nn.Module):
     * dense (eval with ``grouping="dense"``): masked pairs; large
       three-layer scales run the block-sparse kernel (``_sparse_scale``),
       the others masked dense pairs in centroid chunks (``_dense_scale``).
-      Both give the same values.
+      With ``pallas_fused`` and every scale on the block-sparse route, one
+      fused kernel runs all scales (``_fused_scales``). All give the same
+      values.
     * gather (training, or eval with ``grouping="gather"``): the ball query
       selects K neighbors per scale and one gather of ``[points, xyz]`` rows
       serves every scale, so BatchNorm sees the selected-neighbor multiset,
@@ -181,7 +185,7 @@ class SetAbstractionMsg(nn.Module):
         pallas_nb: int = 256, pallas_gather: bool = False,
         pallas_gather_nb: int = 128, pallas_gather_bwd: bool = False,
         pallas_gather_wide: bool = True, rank_ball_query: bool = True,
-        device="cuda",
+        pallas_fused: bool = False, device="cuda",
     ):
         super().__init__()
         if grouping not in ("dense", "gather"):
@@ -199,6 +203,7 @@ class SetAbstractionMsg(nn.Module):
         self.pallas_gather_bwd = pallas_gather_bwd
         self.pallas_gather_wide = pallas_gather_wide
         self.rank_ball_query = rank_ball_query
+        self.pallas_fused = pallas_fused
         self.conv_blocks = nn.ModuleList()
         self.bn_blocks = nn.ModuleList()
         for mlp in self.mlps:
@@ -265,6 +270,10 @@ class SetAbstractionMsg(nn.Module):
             perm = morton_perm(xyz)
             xyz_p = index_points(xyz, perm)
             points_p = index_points(points, perm)
+        if self.pallas_fused and all(sparse):
+            # one kernel pass over every scale, already in concatenation order
+            return new_xyz, self._fused_scales(new_xyz, sqrdists, perm, xyz_p,
+                                               points_p)
         outs = []
         for i, radius in enumerate(self.radius_list):
             k = self.nsample_list[i]
@@ -339,6 +348,31 @@ class SetAbstractionMsg(nn.Module):
         folded, sel_p, act = self.sparse_scale_inputs(
             i, new_xyz, sqrdists, radius, k, perm, xyz_p, points_p)
         return msg_scale_sparse(folded, sel_p, act, self.pallas_nb)
+
+    def fused_scale_inputs(self, new_xyz, sqrdists, perm, xyz_p, points_p):
+        """(stacked, sel_all, act_union, sections, blocks) of every scale for
+        ``msg_fused_scales_sparse``: each scale prepared as for
+        ``msg_scale_sparse`` on the shared Morton order, the folded scales
+        stacked (``stack_folded_scales``), the masks stacked [B, R, S, N] and
+        the union of their tile activities."""
+        folded_list, sels, acts = [], [], []
+        for i, (radius, k) in enumerate(zip(self.radius_list, self.nsample_list)):
+            folded, sel_p, act = self.sparse_scale_inputs(
+                i, new_xyz, sqrdists, radius, k, perm, xyz_p, points_p)
+            folded_list.append(folded)
+            sels.append(sel_p)
+            acts.append(act)
+        stacked, sections, blocks = stack_folded_scales(folded_list)
+        act_union = torch.stack(acts, dim=1).amax(dim=1)
+        return stacked, torch.stack(sels, dim=1), act_union, sections, blocks
+
+    def _fused_scales(self, new_xyz, sqrdists, perm, xyz_p, points_p):
+        """All scales in one block-sparse kernel pass over the union of
+        their tile activities."""
+        stacked, sel_all, act, sections, blocks = self.fused_scale_inputs(
+            new_xyz, sqrdists, perm, xyz_p, points_p)
+        return msg_fused_scales_sparse(stacked, sel_all, act, sections,
+                                       self.pallas_nb, blocks)
 
     def _dense_scale(self, i, xyz, points, new_xyz, sqrdists, radius, k):
         """Masked dense pairs in centroid chunks. The first conv splits into

@@ -92,6 +92,7 @@ class TEHNet(nn.Module):
                 pallas_gather_bwd=cfg.pallas_gather_bwd,
                 pallas_gather_wide=cfg.pallas_gather_wide,
                 rank_ball_query=cfg.rank_ball_query,
+                pallas_fused=cfg.pallas_fused_msg,
             )
 
         self.sa1 = SetAbstractionMsg(

@@ -1,5 +1,6 @@
 """Two-hand mesh collision: candidate pairs, an exact triangle-triangle
-test and the differentiable penetration loss, in plain PyTorch.
+test, the differentiable penetration loss and the share of colliding
+triangles that evaluation scores, in plain PyTorch.
 
 Counterpart of ``ev2hands_tpu/ops/collision.py``. The two MANO meshes have
 a fixed topology (2 x 1538 faces), so a dense AABB broad phase over all
@@ -173,3 +174,25 @@ def collision_loss(
     count = (pen > 0).sum().to(pen.dtype)
     return torch.where(count > 0, pen.sum() / torch.clamp(count, min=1.0) * weight,
                        0.0)
+
+
+@torch.no_grad()
+def collision_percentage(
+    verts_left: torch.Tensor,    # [B, V, 3]
+    verts_right: torch.Tensor,   # [B, V, 3]
+    faces: torch.Tensor,         # [2F, 3] two-hand faces
+    adjacency: torch.Tensor,     # [2F, 2F] bool
+    max_pairs: int = 256,
+) -> torch.Tensor:
+    """[B] percentage of the two-hand triangles that take part in at least
+    one confirmed intersection among the ``max_pairs`` candidates; the
+    non-collision score of an evaluation is 100 minus this."""
+    verts = torch.cat([verts_left, verts_right], dim=1)
+    triangles = verts[:, faces]
+    B, T = triangles.shape[:2]
+    cp = find_collision_pairs(triangles, adjacency, max_pairs)
+    hit = cp.intersecting.to(verts.dtype)
+    flags = torch.zeros((B, T), dtype=verts.dtype, device=verts.device)
+    for side in range(2):
+        flags.scatter_reduce_(1, cp.pairs[..., side], hit, reduce="amax")
+    return flags.sum(dim=-1) / T * 100.0

@@ -14,14 +14,22 @@ eval path runs for the large sa1 scales:
   bring the mask into that order and mark the tiles that hold a selected
   point;
 * ``msg_scale_sparse`` pools ``relu(relu(relu(u - v) W2 + b2) W3 + b3)``
-  over the selected points: ``csrc/msg_sparse.cu`` on a CUDA tensor,
-  ``msg_scale_sparse_plain`` on a CPU tensor.
+  over the selected points of one scale (``msg_scale_sparse_plain`` on a
+  CPU tensor);
+* ``stack_folded_scales`` and ``msg_fused_scales_sparse`` do the same for
+  all scales of a layer in one launch over the union of their tile
+  activities, each output section pooled under its own scale's mask
+  (``msg_fused_scales_sparse_plain`` on a CPU tensor).
+
+On a CUDA tensor both wrappers launch the one kernel of
+``csrc/msg_sparse_fused.cu``, ``msg_scale_sparse`` as its one-scale case.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -143,14 +151,72 @@ def msg_scale_sparse_plain(
     return torch.cat(outs, dim=1)
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("msg_sparse")
-    lib.msg_sparse_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    lib.msg_sparse_launch.restype = ctypes.c_int
-    lib.msg_sparse_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.msg_sparse_smem_bytes.restype = ctypes.c_size_t
+    lib = _build.load("msg_sparse_fused")
+    ints = ctypes.POINTER(ctypes.c_int)
+    lib.msg_sparse_fused_launch.argtypes = (
+        [ctypes.c_void_p] * 9 + [ints] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.msg_sparse_fused_launch.restype = ctypes.c_int
+    lib.msg_sparse_fused_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ints]
+    lib.msg_sparse_fused_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+# Most scales, and output channels per scale, the kernel takes.
+_MAX_SCALES = 3
+_MAX_C3 = 256
+
+
+def _check_inputs(name: str, f: FoldedScale, sel: torch.Tensor, act: torch.Tensor,
+                  nb: int, R: int) -> None:
+    """Raise unless ``f`` (stacked or one scale), ``sel`` [B, R, S, N] and
+    ``act`` [B, S, N // nb] fit each other and the kernel."""
+    B, N, C1 = f.u.shape
+    S = f.v.shape[1]
+    C2, C3 = f.W2.shape[1], f.W3.shape[1]
+    want = {"v": (B, S, C1), "W2": (C1, C2), "b2": (C2,), "W3": (C2, C3), "b3": (C3,)}
+    for field, shape in want.items():
+        t = getattr(f, field)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {field} is {tuple(t.shape)}, want {shape}")
+    if nb <= 0 or N % nb:
+        raise ValueError(f"{name}: nb={nb} must divide N={N}")
+    if tuple(sel.shape) != (B, R, S, N) or tuple(act.shape) != (B, S, N // nb):
+        raise ValueError(f"{name}: mask/act shapes do not match u, v and the scales")
+    tensors = [f.u, f.v, sel, f.W2, f.b2, f.W3, f.b3]
+    if any(t.dtype != torch.float32 or t.device != f.u.device for t in tensors):
+        raise ValueError(f"{name}: want float32 tensors on one device")
+    if act.dtype != torch.int32 or act.device != f.u.device:
+        raise ValueError(f"{name}: act must be int32 on the same device")
+
+
+def _launch(name: str, f: FoldedScale, sel: torch.Tensor, act: torch.Tensor,
+            nb: int, widths: Sequence[Tuple[int, int, int]]) -> torch.Tensor:
+    """Run the kernel on inputs ``_check_inputs`` accepted; ``widths`` holds
+    each scale's (C1, C2, C3), the kernel's block bounds."""
+    B, N, C1t = f.u.shape
+    S = f.v.shape[1]
+    R = len(widths)
+    lib = _lib()
+    c_widths = (ctypes.c_int * (3 * R))(*[c for w in widths for c in w])
+    if lib.msg_sparse_fused_smem_bytes(N, R, c_widths) > _MAX_SMEM:
+        raise ValueError(f"{name}: widths {tuple(widths)} at N={N} exceed the "
+                         "kernel's shared memory")
+    u, v, sel_c, W2, b2, W3, b3 = (
+        t.contiguous() for t in (f.u, f.v, sel, f.W2, f.b2, f.W3, f.b3))
+    act_c = act.contiguous()
+    out = torch.empty((B, S, f.W3.shape[1]), dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        err = lib.msg_sparse_fused_launch(
+            u.data_ptr(), v.data_ptr(), sel_c.data_ptr(), act_c.data_ptr(),
+            W2.data_ptr(), b2.data_ptr(), W3.data_ptr(), b3.data_ptr(),
+            out.data_ptr(), c_widths, B, S, N, R, nb, C1t,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
 
 
 def msg_scale_sparse(
@@ -162,45 +228,96 @@ def msg_scale_sparse(
         return msg_scale_sparse_plain(folded, sel_p, act, nb)
     if folded.u.device.type != "cuda":
         raise ValueError(f"msg_scale_sparse: unsupported device {folded.u.device}")
-    B, N, C1 = folded.u.shape
-    S = folded.v.shape[1]
-    C2, C3 = folded.W2.shape[1], folded.W3.shape[1]
-    want = {
-        "v": (B, S, C1), "W2": (C1, C2), "b2": (C2,), "W3": (C2, C3), "b3": (C3,),
-    }
-    for name, shape in want.items():
-        t = getattr(folded, name)
-        if tuple(t.shape) != shape:
-            raise ValueError(f"msg_scale_sparse: {name} is {tuple(t.shape)}, want {shape}")
-    if nb <= 0 or N % nb:
-        raise ValueError(f"msg_scale_sparse: nb={nb} must divide N={N}")
-    if tuple(sel_p.shape) != (B, S, N) or tuple(act.shape) != (B, S, N // nb):
-        raise ValueError("msg_scale_sparse: sel_p/act shapes do not match u and v")
-    if C3 > 256:
-        raise ValueError(f"msg_scale_sparse: C3={C3} > 256 is not supported")
-    tensors = [folded.u, folded.v, sel_p, folded.W2, folded.b2, folded.W3, folded.b3]
-    if any(t.dtype != torch.float32 or t.device != folded.u.device for t in tensors):
-        raise ValueError("msg_scale_sparse: want float32 tensors on one device")
-    if act.dtype != torch.int32 or act.device != folded.u.device:
-        raise ValueError("msg_scale_sparse: act must be int32 on the same device")
-    lib = _lib()
-    if lib.msg_sparse_smem_bytes(N, C1, C2, C3) > _MAX_SMEM:
-        raise ValueError(f"msg_scale_sparse: widths {C1, C2, C3} at N={N} "
-                         "exceed the kernel's shared memory")
-    u, v, sel_c, W2, b2, W3, b3 = (t.contiguous() for t in tensors)
-    act_c = act.contiguous()
-    out = torch.empty((B, S, C3), dtype=torch.float32, device=u.device)
-    with torch.cuda.device(u.device):
-        err = lib.msg_sparse_launch(
-            u.data_ptr(), v.data_ptr(), sel_c.data_ptr(), act_c.data_ptr(),
-            W2.data_ptr(), b2.data_ptr(), W3.data_ptr(), b3.data_ptr(),
-            out.data_ptr(), B, S, N, C1, C2, C3, nb,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"msg_sparse kernel launch failed: CUDA error {err}")
+    C1, C2, C3 = folded.W2.shape[0], folded.W2.shape[1], folded.W3.shape[1]
+    if C3 > _MAX_C3:
+        raise ValueError(f"msg_scale_sparse: C3={C3} > {_MAX_C3} is not supported")
+    sel = sel_p[:, None]   # [B, 1, S, N]: the kernel's one-scale mask
+    _check_inputs("msg_scale_sparse", folded, sel, act, nb, 1)
+    out = _launch("msg_scale_sparse", folded, sel, act, nb, [(C1, C2, C3)])
     msg_scale_sparse.launches += 1
     return out
 
 
 msg_scale_sparse.launches = 0
+
+
+def stack_folded_scales(
+    folded_list: Sequence[FoldedScale],
+) -> Tuple[FoldedScale, Tuple[int, ...], Tuple[Tuple[int, int], ...]]:
+    """Per-scale ``FoldedScale`` -> (one stacked scale, the C3 width of each
+    scale's output section, each scale's (C1, C2) block widths).
+
+    ``u``, ``v`` and the biases concatenate along the features; ``W2`` and
+    ``W3`` become block-diagonal, so the stacked chain computes every scale
+    at once and its off-diagonal zeros add exact +0.0 terms. The block
+    widths let the kernel visit only the diagonal blocks."""
+    C1s = [f.W2.shape[0] for f in folded_list]
+    C2s = [f.W2.shape[1] for f in folded_list]
+    C3s = [f.W3.shape[1] for f in folded_list]
+    stacked = FoldedScale(
+        u=torch.cat([f.u for f in folded_list], dim=-1),
+        v=torch.cat([f.v for f in folded_list], dim=-1),
+        W2=torch.block_diag(*[f.W2 for f in folded_list]),
+        b2=torch.cat([f.b2 for f in folded_list]),
+        W3=torch.block_diag(*[f.W3 for f in folded_list]),
+        b3=torch.cat([f.b3 for f in folded_list]),
+    )
+    return stacked, tuple(C3s), tuple(zip(C1s, C2s))
+
+
+def msg_fused_scales_sparse_plain(
+    stacked: FoldedScale, sel_all: torch.Tensor, act: torch.Tensor,
+    sections: Sequence[int], nb: int, chunk: int = 64,
+) -> torch.Tensor:
+    """Plain version of the fused kernel: the stacked chain over all point
+    pairs, column section r masked by scale r's selection inside the union
+    active tiles, in chunks of ``chunk`` centroids -> [B, S, sum(sections)]."""
+    u, v = stacked.u, stacked.v
+    S = v.shape[1]
+    tiles = act.repeat_interleave(nb, dim=-1) > 0                 # [B, S, N]
+    # col_scale[c]: the scale whose section holds output column c
+    col_scale = torch.repeat_interleave(
+        torch.arange(len(sections), device=u.device),
+        torch.as_tensor(sections, device=u.device))
+    outs = []
+    for s0 in range(0, S, chunk):
+        z = torch.relu(u[:, None] - v[:, s0:s0 + chunk, None])
+        h = torch.relu(z @ stacked.W2 + stacked.b2)
+        h = torch.relu(h @ stacked.W3 + stacked.b3)
+        keep = (sel_all[:, :, s0:s0 + chunk] > 0.5) & tiles[:, None, s0:s0 + chunk]
+        m = keep.permute(0, 2, 3, 1)[..., col_scale]
+        outs.append(torch.where(m, h, -1e30).amax(dim=2))
+    return torch.cat(outs, dim=1)
+
+
+def msg_fused_scales_sparse(
+    stacked: FoldedScale, sel_all: torch.Tensor, act: torch.Tensor,
+    sections: Sequence[int], nb: int, blocks: Sequence[Tuple[int, int]],
+) -> torch.Tensor:
+    """-> [B, S, sum(sections)] pooled features of every scale of a layer, in
+    the layer's concatenation order. ``stacked`` and ``blocks`` from
+    ``stack_folded_scales`` (``u`` rows in Morton order), ``sel_all``
+    [B, R, S, N] the per-scale masks with Morton columns, ``act`` the union
+    of the scales' ``tile_activity``."""
+    if stacked.u.device.type == "cpu":
+        return msg_fused_scales_sparse_plain(stacked, sel_all, act, sections, nb)
+    if stacked.u.device.type != "cuda":
+        raise ValueError(f"msg_fused_scales_sparse: unsupported device {stacked.u.device}")
+    R = len(sections)
+    widths = [(int(c1), int(c2), int(c3)) for (c1, c2), c3 in zip(blocks, sections)]
+    if not 1 <= R <= _MAX_SCALES or len(blocks) != R:
+        raise ValueError(f"msg_fused_scales_sparse: {R} sections and {len(blocks)} "
+                         f"blocks; want 1 to {_MAX_SCALES} of each")
+    if (tuple(sum(w[i] for w in widths) for i in range(3))
+            != (stacked.W2.shape[0], stacked.W2.shape[1], stacked.W3.shape[1])
+            or any(min(w) <= 0 or w[2] > _MAX_C3 for w in widths)):
+        raise ValueError(f"msg_fused_scales_sparse: blocks {tuple(blocks)} and sections "
+                         f"{tuple(sections)} do not fit the stacked weights or the "
+                         f"kernel (at most {_MAX_C3} channels a section)")
+    _check_inputs("msg_fused_scales_sparse", stacked, sel_all, act, nb, R)
+    out = _launch("msg_fused_scales_sparse", stacked, sel_all, act, nb, widths)
+    msg_fused_scales_sparse.launches += 1
+    return out
+
+
+msg_fused_scales_sparse.launches = 0

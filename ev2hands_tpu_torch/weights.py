@@ -7,8 +7,9 @@ reference's torch ones, so a released reference ``.pth`` fits the same
 modules. This is the port's own copy of the mapping in
 ``ev2hands_tpu/checkpoint.py`` (``flax_to_torch``).
 
-``init_weights`` makes seeded random weights with non-trivial BatchNorm
-statistics, for runs without a trained checkpoint.
+``load_pth_state_dict`` reads a reference ``.pth`` checkpoint into the same
+state dict. ``init_weights`` makes seeded random weights with non-trivial
+BatchNorm statistics, for runs without a trained checkpoint.
 """
 
 from __future__ import annotations
@@ -100,6 +101,24 @@ def flax_to_torch(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             _emit(out, f"{top}.mano_regressor.{slot}", kind, leaf, w)
         else:
             raise ValueError(f"unexpected top-level {'.'.join(parts)}")
+    return out
+
+
+def load_pth_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth`` -> the state dict that ``TEHNet`` loads with
+    ``strict=True`` (CPU tensors). Unwraps the trainer's ``{"state_dict":
+    ...}`` blob, strips DataParallel's ``module.`` prefixes and drops
+    BatchNorm's ``num_batches_tracked`` counters, which the port does not
+    keep. The file is unpickled: load only checkpoints you trust."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    state = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    out = {}
+    for k, v in state.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if k.endswith("num_batches_tracked"):
+            continue
+        out[k] = torch.as_tensor(v)
     return out
 
 

@@ -133,11 +133,14 @@ def test_mano_forward_matches_jax():
 
 def test_port_imports_no_jax():
     """Importing every module of the port loads no JAX, flax or JAX-package
-    module (checked in a fresh interpreter)."""
+    module, nor h5py or OpenCV (checked in a fresh interpreter)."""
     code = (
         "import sys\n"
         "import ev2hands_tpu_torch.serve, ev2hands_tpu_torch.weights\n"
         "import ev2hands_tpu_torch.ops._build, ev2hands_tpu_torch.train\n"
+        "import ev2hands_tpu_torch.evaluate, ev2hands_tpu_torch.evaluate_real\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('h5py', 'cv2')]\n"
+        "assert not bad, bad\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ev2hands_tpu')]\n"
         "print(bad)\n"

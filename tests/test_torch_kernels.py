@@ -85,6 +85,92 @@ def test_msg_sparse_kernel_matches_plain(cuda, widths):
     assert (got[:, 7] == -1e30).all()
 
 
+def _fused_case(rng, B, S, N, nb, widths, device):
+    """Stacked scales of the given (C1, C2, C3) widths and random per-scale
+    masks of up to 128 points each, clustered so that tiles go unused, with
+    an empty centroid (7) in every scale and one (11) empty in scale 0 only."""
+    folded = [_folded(rng, B, S, N, w, "cpu") for w in widths]
+    stacked, sections, blocks = tg.stack_folded_scales(folded)
+    R = len(widths)
+    sel = np.zeros((B, R, S, N), np.float32)
+    for b in range(B):
+        for s in range(S):
+            if s % 13 == 7:
+                continue
+            c = rng.randint(0, N)
+            for r in range(R):
+                if s % 13 == 11 and r == 0:
+                    continue
+                span = rng.randint(1, 300 * (r + 1))
+                pts = rng.randint(max(0, c - span), min(N, c + span), 32 << r)
+                sel[b, r, s, pts] = 1.0
+    sel_all = torch.from_numpy(sel).to(device)
+    act = torch.stack([tg.tile_activity(sel_all[:, r], nb) for r in range(R)],
+                      dim=1).amax(dim=1)
+    stacked = tg.FoldedScale(*(t.to(device) for t in stacked))
+    folded = [tg.FoldedScale(*(t.to(device) for t in f)) for f in folded]
+    return stacked, sel_all, act, sections, blocks, folded
+
+
+# sa1's three scales, and a narrow set of two
+FUSED_WIDTHS = [((32, 32, 64), (64, 64, 128), (64, 96, 128)),
+                ((8, 12, 16), (4, 8, 24))]
+
+
+@pytest.mark.parametrize("widths", FUSED_WIDTHS)
+def test_msg_fused_sparse_kernel_matches_plain(cuda, widths):
+    """All scales in one launch against the plain version (atol 1e-4, f32
+    sums in another order than cuBLAS) and against ``msg_scale_sparse`` run
+    on each scale with its own tile activity (equal: the same rows, each
+    through the same arithmetic). Empty sections stay at -1e30."""
+    rng = np.random.RandomState(len(widths))
+    B, S, N, nb = 2, 61, 2048, 256
+    stacked, sel_all, act, sections, blocks, folded = _fused_case(
+        rng, B, S, N, nb, widths, cuda)
+    assert act.float().mean() < 1
+    launches = tg.msg_fused_scales_sparse.launches
+    got = tg.msg_fused_scales_sparse(stacked, sel_all, act, sections, nb, blocks)
+    torch.cuda.synchronize()
+    assert tg.msg_fused_scales_sparse.launches == launches + 1
+    ref = tg.msg_fused_scales_sparse_plain(stacked, sel_all, act, sections, nb)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+    assert (got[:, 7] == -1e30).all()
+    assert (got[:, 11, :sections[0]] == -1e30).all()
+    assert (got[:, 11, sections[0]:] > -1e30).all()
+    per_scale = torch.cat([
+        tg.msg_scale_sparse(f, sel_all[:, r], tg.tile_activity(sel_all[:, r], nb), nb)
+        for r, f in enumerate(folded)], dim=-1)
+    assert torch.equal(got, per_scale)
+
+
+def test_msg_fused_sparse_wrapper_rejects_what_it_cannot_take(cuda):
+    rng = np.random.RandomState(0)
+    B, S, N, nb = 1, 16, 512, 256
+    stacked, sel_all, act, sections, blocks, _ = _fused_case(
+        rng, B, S, N, nb, ((8, 8, 16), (8, 12, 16)), cuda)
+    fused = tg.msg_fused_scales_sparse
+    with pytest.raises(ValueError):   # blocks do not add up to u's channels
+        fused(stacked, sel_all, act, sections, nb, [(8, 8), (4, 12)])
+    with pytest.raises(ValueError):   # a section too many
+        fused(stacked, sel_all, act, sections + (4,), nb, blocks + ((8, 8),))
+    with pytest.raises(ValueError):   # mask of the wrong shape
+        fused(stacked, sel_all[:, :1], act, sections, nb, blocks)
+    with pytest.raises(ValueError):   # nb does not divide N
+        fused(stacked, sel_all, act, sections, 200, blocks)
+    with pytest.raises(ValueError):   # float64 mask
+        fused(stacked, sel_all.double(), act, sections, nb, blocks)
+    with pytest.raises(ValueError):   # int64 activity
+        fused(stacked, sel_all, act.long(), sections, nb, blocks)
+    with pytest.raises(ValueError):   # the mask on the CPU, u on the card
+        fused(stacked, sel_all.cpu(), act, sections, nb, blocks)
+    wide = _fused_case(rng, B, S, N, nb, ((8, 8, 257),), cuda)
+    with pytest.raises(ValueError):   # a section wider than the block's threads
+        fused(*wide[:4], nb, wide[4])
+    four = _fused_case(rng, B, S, N, nb, ((4, 4, 8),) * 4, cuda)
+    with pytest.raises(ValueError):   # more scales than the kernel takes
+        fused(*four[:4], nb, four[4])
+
+
 def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
     with pytest.raises(ValueError):
         tf.fps(torch.zeros(2, 64, 4, device=cuda), 8)
