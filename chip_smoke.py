@@ -19,6 +19,17 @@ Phases (any failed check raises, so the script exits non-zero):
      (stacked scales, union tile activity): max abs diff <= 1e-4 against its
      plain version, and its difference from phase 4's three sections;
      prints the union activity and each scale's selected pairs;
+ 4c. the dense grouping ops (csrc/msg_dense.cu; no model path runs them) on
+     the same sa1 inputs, each scale folded in original point order: each
+     of the four wrappers once a scale, counted (3 launches each), within
+     1e-4 of its plain version; the mask ops (dense_msg_scale_2d,
+     dense_msg_scale_2d_batched) within 1e-4 of phase 4's K2 output, the
+     in-kernel-selection ops (fused_msg_scale, dense_msg_scale) within 1e-4
+     of the mask op on every (b, s) whose selection equals
+     dense_selection_mask's (the others are counted and printed); each
+     timed with its plain version and its bound; then dense_msg_scale_2d
+     and fused_msg_scale timed at the regressor heads' two sa1 scales
+     beside the model's dense route (_dense_scale) on the same inputs;
   5. serving: InferencePipeline at full TEHNet width (B=16, N=2048, seeded
      weights, synthetic MANO) answers 4 requests with exactly 3 FPS and 3
      grouping launches per request and finite outputs; then 2 windows of one
@@ -91,6 +102,13 @@ EVAL_BATCHES = 8
 REAL_WINDOWS = 96
 # the one-hot gathers of a training step, in call order
 GATHER_LAYERS = ("sa1", "sa2", "left regressor sa1", "right regressor sa1")
+# the dense grouping ops: wrapper, the JAX function it ports, takes a mask
+DENSE_OPS = (
+    ("dense_msg_scale", "ev2hands_tpu/ops/pallas_grouping.py:203", False),
+    ("dense_msg_scale_2d", "ev2hands_tpu/ops/pallas_grouping.py:304", True),
+    ("fused_msg_scale", "ev2hands_tpu/ops/pallas_grouping.py:440", False),
+    ("dense_msg_scale_2d_batched", "ev2hands_tpu/ops/pallas_grouping.py:673", True),
+)
 
 
 def log(*a):
@@ -107,7 +125,8 @@ def kernel_counters():
     return {"fps": kfps.fps, "msg_sparse": kgrp.msg_scale_sparse,
             "msg_fused_sparse": kgrp.msg_fused_scales_sparse,
             "onehot_gather": kga.onehot_gather,
-            "onehot_scatter_add": kga.onehot_scatter_add}
+            "onehot_scatter_add": kga.onehot_scatter_add,
+            **{name: getattr(kgrp, name) for name, _, _ in DENSE_OPS}}
 
 
 def reset_launches():
@@ -269,6 +288,103 @@ def fused_check(torch, kgrp, sa1, new_xyz, sq, perm, xyz_p, pts_p, k2_cat):
         f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
         f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
     return row
+
+
+def dense_ops_phase(torch, kgrp, sa1, l0, events, new_xyz, sq, k2_outs):
+    """Phase 4c: the four dense grouping ops on sa1's scales, folded in
+    original point order -> (their rows by name, the launches of the
+    counted run)."""
+    scales = []
+    for i, (r, k) in enumerate(zip(sa1.radius_list, sa1.nsample_list)):
+        scales.append((sa1.folded_scale(i, l0, events, new_xyz),
+                       kgrp.dense_selection_mask(sq, r, k), r, k))
+
+    def call(name, s, plain=False):
+        """Wrapper ``name`` (its default blocks) or its plain version on
+        scale s, as a function of nothing."""
+        folded, sel, r, k = scales[s]
+        if name.startswith("dense_msg_scale_2d"):
+            fn = kgrp.dense_msg_scale_2d_plain if plain else getattr(kgrp, name)
+            return lambda: fn(folded, sel)
+        fn = kgrp.dense_msg_scale_plain if plain else getattr(kgrp, name)
+        return lambda: fn(l0, new_xyz, folded, r, k)
+
+    reset_launches()
+    outs = {name: [call(name, s)() for s in range(len(scales))]
+            for name, _, _ in DENSE_OPS}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"dense ops: launches {launches}")
+    check_launches("dense ops", launches,
+                   {name: len(scales) for name, _, _ in DENSE_OPS}, 1)
+
+    rows = {name: [] for name, _, _ in DENSE_OPS}
+    for s, (folded, sel, r, k) in enumerate(scales):
+        ball = kgrp.ball_selection_mask(l0, new_xyz, r, k)
+        same = ~(ball != sel).any(dim=-1)                      # [B, S]
+        log(f"dense ops scale {s} r={r} K={k}: the in-kernel selection differs "
+            f"from dense_selection_mask's on {int((~same).sum().item())} of "
+            f"{same.numel()} (b, s) pairs")
+        C1, C2 = folded.W2.shape
+        C3 = folded.W3.shape[1]
+        for name, _, takes_mask in DENSE_OPS:
+            got = outs[name][s]
+            err = (got - call(name, s, plain=True)()).abs().max().item()
+            if takes_mask:   # the same function as K2 on the same selection
+                versus, vs_err = "K2", (got - k2_outs[s]).abs().max().item()
+            else:
+                versus = "dense_msg_scale_2d where the selections agree"
+                vs_err = torch.where(same[..., None], got - outs["dense_msg_scale_2d"][s],
+                                     0.0).abs().max().item()
+            if not (err <= 1e-4 and vs_err <= 1e-4):
+                raise AssertionError(f"{name} scale {s}: max abs diff {err} from its "
+                                     f"plain version, {vs_err} from {versus}")
+            n_sel = int((sel if takes_mask else ball).sum().item())
+            ops = n_sel * 2 * (C1 * C2 + C2 * C3)
+            # every input once: the folded scale, the output, and the mask
+            # or the coordinates
+            reads = (sel,) if takes_mask else (l0, new_xyz)
+            nbytes = 4 * sum(t.numel() for t in (*folded, got, *reads))
+            row = dict(scale=s, widths=[C1, C2, C3], radius=r, nsample=k,
+                       selected_pairs=n_sel, max_abs_err=err, vs=vs_err,
+                       ms=cuda_ms(torch, call(name, s), 20),
+                       plain_ms=cuda_ms(torch, call(name, s, plain=True), 3, 1),
+                       ops=ops, bytes=nbytes)
+            row["bound_ms"], row["bound_by"] = bound(ops, nbytes)
+            rows[name].append(row)
+            log(f"{name} scale {s} {C1, C2, C3}: {n_sel} selected pairs, max abs "
+                f"diff {err:.3g} from its plain version, {vs_err:.3g} from {versus}; "
+                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+                f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return rows, launches
+
+
+def heads_dense_timing(torch, kgrp, sa, l0, feats, new_xyz):
+    """Phase 4c, end: dense_msg_scale_2d and fused_msg_scale at a regressor
+    head's sa1 scales beside the model's dense route on the same inputs,
+    ``feats`` standing in for the attention features (measurements only:
+    the heads' path stays on the dense route)."""
+    from ev2hands_tpu_torch.ops.pointnet import square_distance
+
+    sq = square_distance(new_xyz, l0)
+    for i, (r, k) in enumerate(zip(sa.radius_list, sa.nsample_list)):
+        folded = sa.folded_scale(i, l0, feats, new_xyz)
+        sel = kgrp.dense_selection_mask(sq, r, k)
+        runs = {
+            "dense_msg_scale_2d": lambda: kgrp.dense_msg_scale_2d(folded, sel),
+            "fused_msg_scale": lambda: kgrp.fused_msg_scale(l0, new_xyz, folded, r, k),
+            "_dense_scale": lambda: sa._dense_scale(i, l0, feats, new_xyz, sq, r, k),
+        }
+        outs = {name: fn() for name, fn in runs.items()}
+        diffs = {name: (outs[name] - outs["_dense_scale"]).abs().max().item()
+                 for name in ("dense_msg_scale_2d", "fused_msg_scale")}
+        ms = {name: cuda_ms(torch, fn, 3 if name == "_dense_scale" else 20, 1)
+              for name, fn in runs.items()}
+        log(f"heads sa1 scale {i} {tuple(folded.W2.shape) + (folded.W3.shape[1],)} "
+            f"r={r} K={k} S={new_xyz.shape[1]}: " + ", ".join(
+                f"{name} {t:.4f} ms" for name, t in ms.items())
+            + "; max abs diff from _dense_scale " + ", ".join(
+                f"{name} {d:.3g}" for name, d in diffs.items()))
 
 
 def bound(ops, nbytes):
@@ -879,7 +995,18 @@ def main() -> int:
         # 4b. the fused kernel on the same inputs, the layer's fused preparation
         fused_rows = [fused_check(torch, kgrp, sa1, new_xyz, sq, perm, xyz_p, pts_p,
                                   torch.cat(k2_outs, dim=-1))]
+
+        # 4c. the dense grouping ops on the same inputs in original order,
+        # counted; then at the regressor heads' sa1 scales (timed only)
+        dense_rows, ops_launches = dense_ops_phase(torch, kgrp, sa1, l0, events,
+                                                   new_xyz, sq, k2_outs)
         del k2_outs
+        heads_sa1 = pipe.net.left_mano_regressor.sa1
+        feats = torch.randn((B, N, cfg.model.num_classes), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(5))
+        heads_dense_timing(torch, kgrp, heads_sa1, l0, feats,
+                           index_points(l0, kfps.fps(l0, heads_sa1.npoint)))
+        del feats
 
         # 5. serving: 4 requests through the entry point, counted
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -954,11 +1081,12 @@ def main() -> int:
     # 14. the kernels line. ms, plain_ms, bound_ms and library_ms add the
     # calls of one pass: the three serving FPS shapes and sa1 scales of a
     # forward, the fused sa1 call of an evaluation forward, the four gathers
-    # and three scatter-adds of a training step. launches: every driven
-    # path (serving's 4 requests, training's 4 steps, the evaluations' 8 + 3
-    # batches), also listed by path.
+    # and three scatter-adds of a training step, a dense op's three sa1
+    # scales. launches: every driven path (serving's 4 requests, training's
+    # 4 steps, the evaluations' 8 + 3 batches, phase 4c's ops), also listed
+    # by path.
     by_path = {"serving": launches, "training": train_launches,
-               "evaluation": eval_launches}
+               "evaluation": eval_launches, "ops": ops_launches}
 
     def entry(name, source, replaces, rows, err, library=False):
         return {
@@ -991,7 +1119,9 @@ def main() -> int:
               "ev2hands_tpu/ops/pallas_gather.py:230",
               [r for r in scatter_rows if r["on_path"]],
               max(r["max_abs_err"] for r in scatter_rows), library=True),
-    ]
+    ] + [entry(name, "ev2hands_tpu_torch/csrc/msg_dense.cu", replaces, dense_rows[name],
+               max(r["max_abs_err"] for r in dense_rows[name]))
+         for name, replaces, _ in DENSE_OPS]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,304 @@
+// Dense multi-scale grouping on Hopper (sm_90a): one MSG scale pooled over
+// every point of the cloud, with the selection given or made in the kernel.
+//
+// Replaces four TPU kernels of ev2hands_tpu/ops/pallas_grouping.py, which
+// compute one function in two pairs:
+//  * msg_dense_mask_kernel takes the selection as a mask sel [B, S, N] in
+//    original point order (dense_selection_mask, which carries the point-0
+//    fallback): dense_msg_scale_pallas_2d (_kernel_2d) and
+//    dense_msg_scale_pallas_2d_batched (_kernel_2d_batched);
+//  * msg_dense_ball_kernel selects in the kernel the first nsample points by
+//    index whose squared distance to the centroid is <= r2, and point 0 for
+//    an empty ball: fused_msg_scale_pallas (_kernel_fused) and
+//    dense_msg_scale_pallas (_kernel).
+// For each (b, s) both pool
+//   out[b, s, c] = max over the selected points n of
+//                  relu(relu(relu(u[b, n] - v[b, s]) @ W2 + b2) @ W3 + b3)[c]
+// over u [B, N, C1], v [B, S, C1], W2 [C1, C2], W3 [C2, C3], and the mask
+// kernel leaves -1e30 where the mask selects nothing, as the TPU kernels do
+// (their masked rows contribute h - 1e30 == -1e30 in f32).
+//
+// Selection exactness: d2 = ((cx - x)^2 + (cy - y)^2) + (cz - z)^2 is
+// computed with one rounding per operation (__fsub_rn, __fmul_rn,
+// __fadd_rn: never contracted into an FMA), the order of _kernel_fused and
+// of the plain version, and compared with r2 rounded once to f32 by the
+// caller, so a point on the radius is in or out exactly as there. Ranks come
+// from ballots in index order, so the first nsample are the plain version's.
+//
+// What bounds it on this card: the work is 2 * (C1 * C2 + C2 * C3) flops for
+// each selected pair; the bytes are u, v, the weights, the output and either
+// the [B, S, N] f32 mask or xyz. At sa1's and the regressor heads' shapes
+// the f32 operations bound it.
+//
+// Design (simple first; no tensor cores or TMA yet). The TPU kernels ran
+// the chain over all N points of a centroid and masked the max (the
+// selection-in-kernel ones also carried a running rank across point
+// tiles). Here a CTA of 256 threads takes one (b, s): it compacts the
+// selected point indices into a shared list (the mask kernel from its mask
+// row, any number of them; the ball kernel by a walk over the points in
+// index order, 256 at a time, that stops once nsample are found, which the
+// TPU's fixed grid could not), then runs the chain over the list only, 32
+// rows at a time, so it does the selected pairs' work and no more. Widths
+// up to C1 = 128, C2 = 256, C3 = 256 in any combination (TEHNet's widest
+// MSG scale is (128, 196, 256)): their weights (up to 384 KB in f32) do not
+// fit in shared memory, so they are read through the L1/L2 caches, and each
+// thread carries 8 rows of one output column through a layer so that a
+// weight it reads serves 8 rows. The tiles of the chain lie transposed in
+// shared memory ([channel][row]) so those 8 rows come as two float4 loads.
+// The max over rows folds into shared memory with an integer atomicMax on
+// the float bits, exact because every value is a relu output (>= +0.0) or
+// the -1e30 it starts from.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 32;        // selected rows in the chain at a time
+constexpr int kLd = kRows + 4;   // row stride of the transposed tiles
+constexpr int kRB = 8;           // rows a thread carries through a layer
+constexpr int kMaxC1 = 128;
+constexpr int kMaxC2 = 256;
+constexpr int kMaxC3 = 256;
+
+bool widths_ok(int c1, int c2, int c3) {
+  return c1 > 0 && c1 <= kMaxC1 && c2 > 0 && c2 <= kMaxC2 && c3 > 0 && c3 <= kMaxC3;
+}
+
+// Bytes of dynamic shared memory: the transposed tiles, v, the running max
+// and a list of `list` point indices.
+size_t smem_bytes(int c1, int c2, int c3, int list) {
+  return (static_cast<size_t>(kLd) * (c1 + c2) + c1 + c3 + list) * 4;
+}
+
+struct Shared {
+  float* zT;    // [c1][kLd]  relu(u - v) of the rows in the chain
+  float* hT;    // [c2][kLd]  the second layer's output
+  float* v;     // [c1]       this centroid's v
+  int* mx;      // [c3]       running max, float bits
+  int* rows;    // the selected point indices
+};
+
+__device__ Shared carve(float* smem, int c1, int c2, int c3) {
+  Shared sh;
+  sh.zT = smem;
+  sh.hT = sh.zT + kLd * c1;
+  sh.v = sh.hT + kLd * c2;
+  sh.mx = reinterpret_cast<int*>(sh.v + c1);
+  sh.rows = sh.mx + c3;
+  return sh;
+}
+
+// Loads v[b, s] and sets the running max to -1e30. The caller syncs.
+__device__ void start_centroid(const Shared& sh, const float* __restrict__ v_bs,
+                               int c1, int c3) {
+  for (int c = threadIdx.x; c < c1; c += kThreads) sh.v[c] = v_bs[c];
+  for (int c = threadIdx.x; c < c3; c += kThreads) sh.mx[c] = __float_as_int(-1e30f);
+}
+
+// One layer over the transposed input tile inT [cin][kLd] of nrb row
+// blocks: item (rb, col) computes rows rb * kRB .. + kRB - 1 of output
+// column col, each as a sequential f32 FMA sum over cin, plus the bias,
+// through relu. With `out` it writes them to out [cout][kLd]; otherwise it
+// folds the largest of its rows below rn into the running max.
+__device__ void layer(const float* inT, int cin, const float* __restrict__ W,
+                      const float* __restrict__ bias, int cout, int nrb, int rn,
+                      float* out, int* mx) {
+  for (int e = threadIdx.x; e < nrb * cout; e += kThreads) {
+    const int rb = e / cout, col = e - rb * cout;
+    const float* x = inT + rb * kRB;
+    float acc[kRB];
+#pragma unroll
+    for (int j = 0; j < kRB; ++j) acc[j] = 0.0f;
+    for (int k = 0; k < cin; ++k) {
+      const float w = __ldg(W + static_cast<size_t>(k) * cout + col);
+      const float4 x0 = *reinterpret_cast<const float4*>(x + k * kLd);
+      const float4 x1 = *reinterpret_cast<const float4*>(x + k * kLd + 4);
+      acc[0] = fmaf(x0.x, w, acc[0]);
+      acc[1] = fmaf(x0.y, w, acc[1]);
+      acc[2] = fmaf(x0.z, w, acc[2]);
+      acc[3] = fmaf(x0.w, w, acc[3]);
+      acc[4] = fmaf(x1.x, w, acc[4]);
+      acc[5] = fmaf(x1.y, w, acc[5]);
+      acc[6] = fmaf(x1.z, w, acc[6]);
+      acc[7] = fmaf(x1.w, w, acc[7]);
+    }
+    const float b = __ldg(bias + col);
+#pragma unroll
+    for (int j = 0; j < kRB; ++j) {
+      const float y = acc[j] + b;
+      acc[j] = y > 0.0f ? y : 0.0f;   // +0.0 for y <= 0: the max's int order
+    }
+    if (out != nullptr) {
+      float4* o = reinterpret_cast<float4*>(out + col * kLd + rb * kRB);
+      o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    } else {
+      float m = acc[0];   // row rb * kRB < rn for every block below nrb
+#pragma unroll
+      for (int j = 1; j < kRB; ++j) {
+        if (rb * kRB + j < rn) m = fmaxf(m, acc[j]);
+      }
+      atomicMax(mx + col, __float_as_int(m));
+    }
+  }
+}
+
+// Runs the chain over the rows sh.rows[0 .. nsel) of u_b [N, c1] and folds
+// them into the running max, which it writes to out_bs [c3]. Called by the
+// whole CTA after a sync that publishes sh.v, sh.mx and the rows.
+__device__ void pool_rows(const Shared& sh, int nsel, const float* __restrict__ u_b,
+                          const float* __restrict__ W2, const float* __restrict__ b2,
+                          const float* __restrict__ W3, const float* __restrict__ b3,
+                          int c1, int c2, int c3, float* __restrict__ out_bs) {
+  for (int r0 = 0; r0 < nsel; r0 += kRows) {
+    const int rn = min(kRows, nsel - r0);
+    const int nrb = (rn + kRB - 1) / kRB;
+    // z = relu(u - v), transposed; the padding rows of the last block are 0
+    for (int e = threadIdx.x; e < nrb * kRB * c1; e += kThreads) {
+      const int i = e / c1, k = e - i * c1;
+      sh.zT[k * kLd + i] =
+          i < rn ? fmaxf(u_b[static_cast<size_t>(sh.rows[r0 + i]) * c1 + k] - sh.v[k], 0.0f)
+                 : 0.0f;
+    }
+    __syncthreads();
+    layer(sh.zT, c1, W2, b2, c2, nrb, rn, sh.hT, nullptr);
+    __syncthreads();
+    layer(sh.hT, c2, W3, b3, c3, nrb, rn, nullptr, sh.mx);
+    __syncthreads();   // zT and hT are rewritten by the next pass
+  }
+  for (int c = threadIdx.x; c < c3; c += kThreads) out_bs[c] = __int_as_float(sh.mx[c]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+msg_dense_mask_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                      const float* __restrict__ sel, const float* __restrict__ W2,
+                      const float* __restrict__ b2, const float* __restrict__ W3,
+                      const float* __restrict__ b3, float* __restrict__ out, int S,
+                      int N, int c1, int c2, int c3) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int nrows;
+  const Shared sh = carve(smem, c1, c2, c3);
+  const int b = blockIdx.y;
+  const size_t bs = static_cast<size_t>(b) * S + blockIdx.x;
+  if (threadIdx.x == 0) nrows = 0;
+  start_centroid(sh, v + bs * c1, c1, c3);
+  __syncthreads();
+  const float* sel_row = sel + bs * N;
+  for (int n = threadIdx.x; n < N; n += kThreads) {
+    if (sel_row[n] > 0.5f) sh.rows[atomicAdd(&nrows, 1)] = n;
+  }
+  __syncthreads();
+  pool_rows(sh, nrows, u + static_cast<size_t>(b) * N * c1, W2, b2, W3, b3, c1, c2,
+            c3, out + bs * c3);
+}
+
+__global__ void __launch_bounds__(kThreads)
+msg_dense_ball_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
+                      const float* __restrict__ u, const float* __restrict__ v,
+                      const float* __restrict__ W2, const float* __restrict__ b2,
+                      const float* __restrict__ W3, const float* __restrict__ b3,
+                      float* __restrict__ out, int S, int N, int c1, int c2, int c3,
+                      float r2, int nsample) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int count;              // in-radius points found so far
+  __shared__ int warp_in[kWarps];    // in-radius points of each warp's 32
+  const Shared sh = carve(smem, c1, c2, c3);
+  const int b = blockIdx.y;
+  const size_t bs = static_cast<size_t>(b) * S + blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float cx = new_xyz[bs * 3], cy = new_xyz[bs * 3 + 1], cz = new_xyz[bs * 3 + 2];
+  const float* x_b = xyz + static_cast<size_t>(b) * N * 3;
+  if (threadIdx.x == 0) count = 0;
+  start_centroid(sh, v + bs * c1, c1, c3);
+  __syncthreads();
+
+  // `count` is read after a sync, so every thread takes the same branch
+  for (int t0 = 0; t0 < N && count < nsample; t0 += kThreads) {
+    const int n = t0 + threadIdx.x;
+    bool in = false;
+    if (n < N) {
+      const float dx = __fsub_rn(cx, x_b[3 * n]);
+      const float dy = __fsub_rn(cy, x_b[3 * n + 1]);
+      const float dz = __fsub_rn(cz, x_b[3 * n + 2]);
+      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                 __fmul_rn(dz, dz));
+      in = d2 <= r2;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, in);
+    if (lane == 0) warp_in[warp] = __popc(ballot);
+    __syncthreads();
+    int rank = count + __popc(ballot & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) rank += warp_in[w];
+    if (in && rank < nsample) sh.rows[rank] = n;
+    __syncthreads();   // all have read count and warp_in
+    if (threadIdx.x == 0) {
+      int t = 0;
+      for (int w = 0; w < kWarps; ++w) t += warp_in[w];
+      count += t;
+    }
+    __syncthreads();
+  }
+  int nsel = min(count, nsample);
+  if (nsel == 0) {   // an empty ball pools point 0's chain
+    nsel = 1;
+    if (threadIdx.x == 0) sh.rows[0] = 0;
+    __syncthreads();
+  }
+  pool_rows(sh, nsel, u + static_cast<size_t>(b) * N * c1, W2, b2, W3, b3, c1, c2, c3,
+            out + bs * c3);
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+}  // namespace
+
+// Dynamic shared memory of a launch, in bytes, for widths (c1, c2, c3) and a
+// list of `list` point indices (N for the mask kernel, min(nsample, N) or 1
+// for the ball kernel); 0 when the widths do not fit the kernels.
+extern "C" size_t msg_dense_smem_bytes(int c1, int c2, int c3, int list) {
+  if (!widths_ok(c1, c2, c3) || list < 1) return 0;
+  return smem_bytes(c1, c2, c3, list);
+}
+
+// u [B, N, c1], v [B, S, c1], sel [B, S, N] f32 (0/1), W2 [c1, c2], b2 [c2],
+// W3 [c2, c3], b3 [c3], out [B, S, c3] f32; all contiguous on the current
+// device. Returns the CUDA error of the launch (0 = success).
+extern "C" int msg_dense_mask_launch(const float* u, const float* v, const float* sel,
+                                     const float* W2, const float* b2, const float* W3,
+                                     const float* b3, float* out, int B, int S, int N,
+                                     int c1, int c2, int c3, void* stream) {
+  if (!widths_ok(c1, c2, c3) || B < 1 || S < 1 || N < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = smem_bytes(c1, c2, c3, N);
+  cudaError_t err = prepare(msg_dense_mask_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  msg_dense_mask_kernel<<<dim3(S, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      u, v, sel, W2, b2, W3, b3, out, S, N, c1, c2, c3);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xyz [B, N, 3], new_xyz [B, S, 3] and the operands of the mask launch but
+// the mask; r2 the squared radius in f32, nsample >= 1. Returns the CUDA
+// error of the launch (0 = success).
+extern "C" int msg_dense_ball_launch(const float* xyz, const float* new_xyz,
+                                     const float* u, const float* v, const float* W2,
+                                     const float* b2, const float* W3, const float* b3,
+                                     float* out, int B, int S, int N, int c1, int c2,
+                                     int c3, float r2, int nsample, void* stream) {
+  if (!widths_ok(c1, c2, c3) || B < 1 || S < 1 || N < 1 || nsample < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = smem_bytes(c1, c2, c3, nsample < N ? nsample : N);
+  cudaError_t err = prepare(msg_dense_ball_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  msg_dense_ball_kernel<<<dim3(S, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xyz, new_xyz, u, v, W2, b2, W3, b3, out, S, N, c1, c2, c3, r2, nsample);
+  return static_cast<int>(cudaGetLastError());
+}

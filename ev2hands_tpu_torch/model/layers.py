@@ -332,14 +332,18 @@ class SetAbstractionMsg(nn.Module):
         """(FoldedScale, sel_p, act) of scale ``i`` for ``msg_scale_sparse``:
         BN folded into the weights, points in the layer's Morton order
         ``perm``, the selection mask column-permuted, per-tile activity."""
-        convs, bns = self.conv_blocks[i], self.bn_blocks[i]
-        folded = fold_scale_params(
-            points_p, xyz_p, new_xyz,
-            [{"kernel": c.kernel, "bias": c.bias} for c in convs],
-            [bn.affine() for bn in bns],
-        )
+        folded = self.folded_scale(i, xyz_p, points_p, new_xyz)
         sel_p = permute_columns(dense_selection_mask(sqrdists, radius, k), perm)
         return folded, sel_p, tile_activity(sel_p, self.pallas_nb)
+
+    def folded_scale(self, i, xyz, points, new_xyz):
+        """Scale ``i``'s ``FoldedScale`` with eval BatchNorm folded in, its
+        ``u`` rows in the order of ``xyz`` and ``points``."""
+        return fold_scale_params(
+            points, xyz, new_xyz,
+            [{"kernel": c.kernel, "bias": c.bias} for c in self.conv_blocks[i]],
+            [bn.affine() for bn in self.bn_blocks[i]],
+        )
 
     def _sparse_scale(self, i, new_xyz, sqrdists, radius, k, perm, xyz_p,
                       points_p):

@@ -23,13 +23,30 @@ eval path runs for the large sa1 scales:
 
 On a CUDA tensor both wrappers launch the one kernel of
 ``csrc/msg_sparse_fused.cu``, ``msg_scale_sparse`` as its one-scale case.
+
+The dense counterparts pool one scale over every point in original order,
+with no Morton order and no tile skip. The JAX package keeps them as
+measured explorations that no model path calls; they port as ops, each
+wrapper named after its Pallas function:
+
+* ``dense_msg_scale_2d`` (``dense_msg_scale_pallas_2d``) and
+  ``dense_msg_scale_2d_batched`` (``dense_msg_scale_pallas_2d_batched``)
+  take the selection as a mask from ``dense_selection_mask``
+  (``dense_msg_scale_2d_plain`` on a CPU tensor);
+* ``fused_msg_scale`` (``fused_msg_scale_pallas``) and ``dense_msg_scale``
+  (``dense_msg_scale_pallas``) select in the kernel, as
+  ``ball_selection_mask`` does from elementwise f32 distances
+  (``dense_msg_scale_plain`` on a CPU tensor).
+
+On a CUDA tensor the first two launch one kernel of ``csrc/msg_dense.cu``
+and the last two the other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -85,13 +102,34 @@ def dense_selection_mask(
 ) -> torch.Tensor:
     """[B, S, N] squared distances -> [B, S, N] float32 0/1 mask of the first
     ``nsample`` in-radius points by index, point 0 for an empty ball."""
-    mask = sqrdists <= radius * radius
+    return _first_in_radius(sqrdists <= radius * radius, nsample)
+
+
+def _first_in_radius(mask: torch.Tensor, nsample: int) -> torch.Tensor:
+    """[B, S, N] in-radius mask -> [B, S, N] float32 0/1 mask of its first
+    ``nsample`` points by index, point 0 for a row with none."""
     rank = torch.cumsum(mask, dim=-1) - mask.long()
     sel = mask & (rank < nsample)
     empty = ~mask.any(dim=-1)
-    at0 = torch.arange(sqrdists.shape[-1], device=sqrdists.device) == 0
+    at0 = torch.arange(mask.shape[-1], device=mask.device) == 0
     sel = sel | (empty[..., None] & at0)
     return sel.float()
+
+
+def ball_selection_mask(
+    xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float, nsample: int
+) -> torch.Tensor:
+    """xyz [B, N, 3], new_xyz [B, S, 3] -> the selection of
+    ``dense_selection_mask`` from distances computed as the in-kernel
+    selecting TPU kernels do: ``((cx - x)^2 + (cy - y)^2) + (cz - z)^2``
+    elementwise in f32, compared with ``radius * radius`` rounded once to
+    f32 (as JAX rounds a weak-typed Python scalar). ``square_distance``'s
+    expanded formula can put a point on the radius one ulp to the other
+    side."""
+    d = new_xyz[:, :, None, :] - xyz[:, None, :, :]            # [B, S, N, 3]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    r2 = torch.tensor(radius * radius, dtype=torch.float32, device=xyz.device)
+    return _first_in_radius(d2 <= r2, nsample)
 
 
 def morton_perm(xyz: torch.Tensor, bits: int = 6) -> torch.Tensor:
@@ -138,11 +176,17 @@ def msg_scale_sparse_plain(
 ) -> torch.Tensor:
     """Plain version of the kernel: the same function over all point pairs,
     masked, in chunks of ``chunk`` centroids -> [B, S, C3]."""
-    u, v = folded.u, folded.v
-    S = v.shape[1]
     keep = (sel_p > 0.5) & (act.repeat_interleave(nb, dim=-1) > 0)
+    return _pooled_chain(folded, keep, chunk)
+
+
+def _pooled_chain(folded: FoldedScale, keep: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The folded chain of every (point, centroid) pair, max-pooled over the
+    points that ``keep`` [B, S, N] marks (-1e30 where it marks none), in
+    chunks of ``chunk`` centroids -> [B, S, C3]."""
+    u, v = folded.u, folded.v
     outs = []
-    for s0 in range(0, S, chunk):
+    for s0 in range(0, v.shape[1], chunk):
         z = torch.relu(u[:, None] - v[:, s0:s0 + chunk, None])
         h = torch.relu(z @ folded.W2 + folded.b2)
         h = torch.relu(h @ folded.W3 + folded.b3)
@@ -321,3 +365,198 @@ def msg_fused_scales_sparse(
 
 
 msg_fused_scales_sparse.launches = 0
+
+
+# Widest (C1, C2, C3) the dense kernels take; TEHNet's widest MSG scale is
+# (128, 196, 256).
+_DENSE_MAX_WIDTHS = (128, 256, 256)
+
+
+def dense_msg_scale_2d_plain(
+    folded: FoldedScale, sel: torch.Tensor, chunk: int = 64
+) -> torch.Tensor:
+    """Plain version of the mask kernel: ``sel`` [B, S, N] (original point
+    order, the fallback already in it) -> [B, S, C3], -1e30 for a row that
+    selects nothing."""
+    return _pooled_chain(folded, sel > 0.5, chunk)
+
+
+def dense_msg_scale_plain(
+    xyz: torch.Tensor, new_xyz: torch.Tensor, folded: FoldedScale,
+    radius: float, nsample: int, chunk: int = 64,
+) -> torch.Tensor:
+    """Plain version of the in-kernel-selection kernel -> [B, S, C3]: the
+    chain pooled over ``ball_selection_mask``, so an empty ball pools point
+    0's chain."""
+    return _pooled_chain(
+        folded, ball_selection_mask(xyz, new_xyz, radius, nsample) > 0.5, chunk)
+
+
+def _check_blocks(name: str, S: int, sb: int, N: Optional[int] = None,
+                  nb: Optional[int] = None) -> None:
+    """Raise where the Pallas function's assert on its block sizes fires."""
+    if sb <= 0 or S % sb or (nb is not None and (nb <= 0 or N % nb)):
+        raise ValueError(f"{name}: want S % sb == 0 and N % nb == 0, got S={S}, "
+                         f"sb={sb}, N={N}, nb={nb}")
+
+
+def _on_cpu(name: str, t: torch.Tensor) -> bool:
+    """True on the CPU (plain version), False on a CUDA device (kernel)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type == "cpu"
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_lib() -> ctypes.CDLL:
+    lib = _build.load("msg_dense")
+    lib.msg_dense_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.msg_dense_smem_bytes.restype = ctypes.c_size_t
+    lib.msg_dense_mask_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.msg_dense_mask_launch.restype = ctypes.c_int
+    lib.msg_dense_ball_launch.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                                      ctypes.c_void_p])
+    lib.msg_dense_ball_launch.restype = ctypes.c_int
+    return lib
+
+
+def _dense_operands(name: str, f: FoldedScale, extra: dict, list_len: int):
+    """Check ``f`` and the ``extra`` tensors (name -> (tensor, wanted
+    shape)) against the dense kernels -> (data pointers of the contiguous
+    operands by name, the library)."""
+    B, N, C1 = f.u.shape
+    S = f.v.shape[1]
+    C2, C3 = f.W2.shape[1], f.W3.shape[1]
+    want = {"v": (B, S, C1), "W2": (C1, C2), "b2": (C2,), "W3": (C2, C3), "b3": (C3,)}
+    named = {**f._asdict(), **{k: t for k, (t, _) in extra.items()}}
+    want.update({k: shape for k, (_, shape) in extra.items()})
+    for field, shape in want.items():
+        if tuple(named[field].shape) != shape:
+            raise ValueError(f"{name}: {field} is {tuple(named[field].shape)}, want {shape}")
+    if any(t.dtype != torch.float32 or t.device != f.u.device for t in named.values()):
+        raise ValueError(f"{name}: want float32 tensors on one device")
+    if any(c > m for c, m in zip((C1, C2, C3), _DENSE_MAX_WIDTHS)):
+        raise ValueError(f"{name}: widths {(C1, C2, C3)} exceed the kernel's "
+                         f"{_DENSE_MAX_WIDTHS}")
+    lib = _dense_lib()
+    if lib.msg_dense_smem_bytes(C1, C2, C3, list_len) > _MAX_SMEM:
+        raise ValueError(f"{name}: N={N} does not fit the kernel's shared memory")
+    contiguous = {k: t.contiguous() for k, t in named.items()}
+    return contiguous, lib
+
+
+def _launch_mask(name: str, f: FoldedScale, sel: torch.Tensor) -> torch.Tensor:
+    B, N, C1 = f.u.shape
+    S = f.v.shape[1]
+    C2, C3 = f.W2.shape[1], f.W3.shape[1]
+    t, lib = _dense_operands(name, f, {"sel": (sel, (B, S, N))}, N)
+    out = torch.empty((B, S, C3), dtype=torch.float32, device=f.u.device)
+    with torch.cuda.device(out.device):
+        err = lib.msg_dense_mask_launch(
+            *(t[k].data_ptr() for k in ("u", "v", "sel", "W2", "b2", "W3", "b3")),
+            out.data_ptr(), B, S, N, C1, C2, C3,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _launch_ball(name: str, xyz: torch.Tensor, new_xyz: torch.Tensor,
+                 f: FoldedScale, radius: float, nsample: int) -> torch.Tensor:
+    B, N, C1 = f.u.shape
+    S = f.v.shape[1]
+    C2, C3 = f.W2.shape[1], f.W3.shape[1]
+    t, lib = _dense_operands(
+        name, f, {"xyz": (xyz, (B, N, 3)), "new_xyz": (new_xyz, (B, S, 3))},
+        min(nsample, N))
+    out = torch.empty((B, S, C3), dtype=torch.float32, device=f.u.device)
+    with torch.cuda.device(out.device):
+        err = lib.msg_dense_ball_launch(
+            *(t[k].data_ptr() for k in ("xyz", "new_xyz", "u", "v", "W2", "b2", "W3", "b3")),
+            out.data_ptr(), B, S, N, C1, C2, C3,
+            radius * radius,   # ctypes rounds it once to f32
+            nsample, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _check_nsample(name: str, nsample: int) -> None:
+    if nsample < 1:
+        raise ValueError(f"{name}: nsample={nsample}, want at least 1")
+
+
+def dense_msg_scale_2d(folded: FoldedScale, sel: torch.Tensor, sb: int = 8) -> torch.Tensor:
+    """-> [B, S, C3] pooled features of one scale from the mask ``sel``
+    [B, S, N] of ``dense_selection_mask`` (original point order).
+    Counterpart of ``dense_msg_scale_pallas_2d``; ``sb`` is its centroid
+    block, checked as it asserts it."""
+    _check_blocks("dense_msg_scale_2d", folded.v.shape[1], sb)
+    if _on_cpu("dense_msg_scale_2d", folded.u):
+        return dense_msg_scale_2d_plain(folded, sel)
+    out = _launch_mask("dense_msg_scale_2d", folded, sel)
+    dense_msg_scale_2d.launches += 1
+    return out
+
+
+dense_msg_scale_2d.launches = 0
+
+
+def dense_msg_scale_2d_batched(
+    folded: FoldedScale, sel: torch.Tensor, sb: int = 4
+) -> torch.Tensor:
+    """The same function as ``dense_msg_scale_2d``. Counterpart of
+    ``dense_msg_scale_pallas_2d_batched``, which on the TPU gathered a
+    block's pairs into one scratch matrix; here it launches the same
+    kernel."""
+    _check_blocks("dense_msg_scale_2d_batched", folded.v.shape[1], sb)
+    if _on_cpu("dense_msg_scale_2d_batched", folded.u):
+        return dense_msg_scale_2d_plain(folded, sel)
+    out = _launch_mask("dense_msg_scale_2d_batched", folded, sel)
+    dense_msg_scale_2d_batched.launches += 1
+    return out
+
+
+dense_msg_scale_2d_batched.launches = 0
+
+
+def fused_msg_scale(
+    xyz: torch.Tensor, new_xyz: torch.Tensor, folded: FoldedScale,
+    radius: float, nsample: int, sb: int = 8, nb: int = 512,
+) -> torch.Tensor:
+    """-> [B, S, C3] pooled features of one scale over the first ``nsample``
+    points by index within ``radius`` of each centroid, point 0's chain for
+    an empty ball; the selection in the kernel. Counterpart of
+    ``fused_msg_scale_pallas``; ``sb`` and ``nb`` are its blocks, checked as
+    it asserts them."""
+    _check_blocks("fused_msg_scale", new_xyz.shape[1], sb, xyz.shape[1], nb)
+    _check_nsample("fused_msg_scale", nsample)
+    if _on_cpu("fused_msg_scale", folded.u):
+        return dense_msg_scale_plain(xyz, new_xyz, folded, radius, nsample)
+    out = _launch_ball("fused_msg_scale", xyz, new_xyz, folded, radius, nsample)
+    fused_msg_scale.launches += 1
+    return out
+
+
+fused_msg_scale.launches = 0
+
+
+def dense_msg_scale(
+    xyz: torch.Tensor, new_xyz: torch.Tensor, folded: FoldedScale,
+    radius: float, nsample: int, sb: int = 32, nb: int = 256,
+) -> torch.Tensor:
+    """The same function as ``fused_msg_scale``. Counterpart of
+    ``dense_msg_scale_pallas``, whose 3-D tiles blend point 0's chain into
+    an empty ball's result; here it launches the same kernel."""
+    _check_blocks("dense_msg_scale", new_xyz.shape[1], sb, xyz.shape[1], nb)
+    _check_nsample("dense_msg_scale", nsample)
+    if _on_cpu("dense_msg_scale", folded.u):
+        return dense_msg_scale_plain(xyz, new_xyz, folded, radius, nsample)
+    out = _launch_ball("dense_msg_scale", xyz, new_xyz, folded, radius, nsample)
+    dense_msg_scale.launches += 1
+    return out
+
+
+dense_msg_scale.launches = 0

@@ -12,6 +12,7 @@ import torch
 from ev2hands_tpu_torch.ops import fps as tf
 from ev2hands_tpu_torch.ops import gather as tga
 from ev2hands_tpu_torch.ops import grouping as tg
+from ev2hands_tpu_torch.ops import pointnet as tp
 
 pytestmark = pytest.mark.cuda
 
@@ -249,3 +250,125 @@ def test_grouped_gather_kernel_backward_matches_plain(cuda):
         grads[bwd] = s.grad
     bound = 1e-5 * (1 + tga.onehot_scatter_add_plain(ct.abs(), idx, 512))
     assert ((grads["pallas"] - grads["xla"]).abs() <= bound).all()
+
+
+# sa1's three scales and the regressor heads' two, each with its radius and K
+DENSE_SCALES = [((32, 32, 64), 0.1, 32), ((64, 64, 128), 0.2, 64),
+                ((64, 96, 128), 0.4, 128), ((128, 128, 256), 0.4, 64),
+                ((128, 196, 256), 0.8, 128)]
+DENSE_IDS = ["x".join(map(str, w)) for w, _, _ in DENSE_SCALES]
+
+
+def _dense_case(rng, widths, device, B=2, S=64, N=2048):
+    """A cloud with duplicated points, centroids on its first points but
+    centroid 5 far away (an empty ball), and a random folded scale."""
+    xyz = _cloud(rng, B, N, N * 3 // 4)
+    new_xyz = xyz[:, :S].clone()
+    new_xyz[:, 5] = 7.0
+    return xyz.to(device), new_xyz.to(device), _folded(rng, B, S, N, widths, device)
+
+
+@pytest.mark.parametrize("widths,radius,k", DENSE_SCALES, ids=DENSE_IDS)
+def test_msg_dense_mask_kernels_match_plain(cuda, widths, radius, k):
+    """K5 and K7 (one kernel) against the plain version on the mask of
+    ``dense_selection_mask``, with a row that selects nothing (-1e30) and
+    one that selects 1500 points. atol 1e-4: f32 sums in another order
+    than cuBLAS."""
+    rng = np.random.RandomState(widths[1] + k)
+    xyz, new_xyz, folded = _dense_case(rng, widths, cuda)
+    sel = tg.dense_selection_mask(tp.square_distance(new_xyz, xyz), radius, k)
+    sel[:, 9] = 0.0
+    sel[:, 11, torch.from_numpy(rng.choice(2048, 1500, replace=False)).to(cuda)] = 1.0
+    ref = tg.dense_msg_scale_2d_plain(folded, sel)
+    outs = []
+    for op in (tg.dense_msg_scale_2d, tg.dense_msg_scale_2d_batched):
+        launches = op.launches
+        outs.append(op(folded, sel))
+        torch.cuda.synchronize()
+        assert op.launches == launches + 1
+        torch.testing.assert_close(outs[-1], ref, atol=1e-4, rtol=0)
+    assert torch.equal(outs[0], outs[1])
+    assert (outs[0][:, 9] == -1e30).all()
+
+
+@pytest.mark.parametrize("widths,radius,k", DENSE_SCALES, ids=DENSE_IDS)
+def test_msg_dense_ball_kernels_match_plain(cuda, widths, radius, k):
+    """K4 and K6 (one kernel, equal outputs) against the plain version,
+    atol 1e-4; the far centroid pools point 0's chain."""
+    rng = np.random.RandomState(widths[2] + k)
+    xyz, new_xyz, folded = _dense_case(rng, widths, cuda)
+    ref = tg.dense_msg_scale_plain(xyz, new_xyz, folded, radius, k)
+    outs = []
+    for op in (tg.fused_msg_scale, tg.dense_msg_scale):
+        launches = op.launches
+        outs.append(op(xyz, new_xyz, folded, radius, k))
+        torch.cuda.synchronize()
+        assert op.launches == launches + 1
+        torch.testing.assert_close(outs[-1], ref, atol=1e-4, rtol=0)
+    assert torch.equal(outs[0], outs[1])
+    one = tg.FoldedScale(folded.u[:, :1], *folded[1:])
+    point0 = tg.dense_msg_scale_2d_plain(one, torch.ones_like(folded.v[..., :1]))
+    torch.testing.assert_close(outs[0][:, 5], point0[:, 5], atol=1e-4, rtol=0)
+
+
+def _on_radius_cloud(rng, radius, B=2, N=2048):
+    """Centroid 0 at the origin with only points within a few ulps of its
+    radius in f32 (x^2 + y^2 with some exactly radius^2), in random index
+    order; every other point far from it."""
+    r2 = np.float32(radius * radius)
+    x0 = np.float32(radius / np.sqrt(2.0))
+    steps = [np.float32(x0 + i * np.spacing(x0)) for i in range(-6, 7)]
+    near = [(x, y) for x in steps for y in steps
+            if abs(np.float32(x * x) + np.float32(y * y) - r2) <= 2 * np.spacing(r2)]
+    assert any(np.float32(x * x) + np.float32(y * y) == r2 for x, y in near)
+    xyz = rng.uniform(2 * radius + 0.1, 1.0, (B, N, 3)).astype(np.float32)
+    xyz *= rng.choice([-1, 1], (B, N, 3))
+    for b in range(B):
+        at = rng.choice(np.arange(1, N), len(near), replace=False)
+        xyz[b, at] = [[x, y, 0.0] for x, y in near]
+    return torch.from_numpy(xyz)
+
+
+def test_msg_dense_ball_kernel_exact_on_the_radius(cuda):
+    """Points within two ulps of the radius, some exactly on it, in a ball
+    that holds nothing else: the kernel selects the plain version's points
+    (a flipped point changes the max of some channel by far more than 1e-4),
+    and the plain selection on the card is the CPU's."""
+    rng = np.random.RandomState(7)
+    for radius, k in ((0.3, 8), (0.4, 64)):
+        xyz = _on_radius_cloud(rng, radius)
+        new_xyz = torch.zeros(2, 8, 3)
+        new_xyz[:, 1:] = xyz[:, 1:8]
+        sel = tg.ball_selection_mask(xyz, new_xyz, radius, k)
+        assert (sel[:, 0].sum(-1) > 1).all()   # points in the ball, not the fallback
+        xyz_d, new_xyz_d = xyz.to(cuda), new_xyz.to(cuda)
+        assert torch.equal(tg.ball_selection_mask(xyz_d, new_xyz_d, radius, k).cpu(), sel)
+        folded = _folded(rng, 2, 8, 2048, (64, 96, 128), cuda)
+        folded = folded._replace(u=folded.u * 3)
+        ref = tg.dense_msg_scale_plain(xyz_d, new_xyz_d, folded, radius, k)
+        got = tg.fused_msg_scale(xyz_d, new_xyz_d, folded, radius, k)
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+        assert torch.equal(got, tg.dense_msg_scale(xyz_d, new_xyz_d, folded, radius, k,
+                                                   sb=8))
+
+
+def test_msg_dense_wrappers_reject_what_they_cannot_take(cuda):
+    rng = np.random.RandomState(1)
+    xyz, new_xyz, folded = _dense_case(rng, (8, 8, 16), cuda, B=1, S=8, N=512)
+    sel = torch.ones(1, 8, 512, device=cuda)
+    for widths in ((129, 8, 16), (8, 257, 16), (8, 8, 257)):
+        wide = _folded(rng, 1, 8, 512, widths, cuda)
+        with pytest.raises(ValueError):
+            tg.dense_msg_scale_2d(wide, sel)
+        with pytest.raises(ValueError):
+            tg.fused_msg_scale(xyz, new_xyz, wide, 0.2, 8)
+    with pytest.raises(ValueError):   # mask of the wrong shape
+        tg.dense_msg_scale_2d_batched(folded, sel[:, :4], sb=4)
+    with pytest.raises(ValueError):   # float64 mask
+        tg.dense_msg_scale_2d(folded, sel.double())
+    with pytest.raises(ValueError):   # the mask on the CPU, u on the card
+        tg.dense_msg_scale_2d(folded, sel.cpu())
+    with pytest.raises(ValueError):   # xyz of the wrong shape
+        tg.dense_msg_scale(xyz[..., :2], new_xyz, folded, 0.2, 8, sb=8)
+    with pytest.raises(ValueError):   # centroids on the CPU
+        tg.fused_msg_scale(xyz, new_xyz.cpu(), folded, 0.2, 8)
