@@ -6,10 +6,12 @@
 Phases (any failed check raises, so the script exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the port from ev2hands_tpu_torch/csrc with nvcc
-     for sm_90a, one process per source, timed;
+     for sm_90a, one process per source, timed, and print each kernel
+     function's registers, stack frame and spill bytes from ptxas;
   3. the FPS kernel against its plain version on ERPC clouds at B=16, at the
      three serving shapes (2048->512, 2048->128, 512->128): equal indices;
-  4. the block-sparse grouping kernel, one scale a launch (msg_scale_sparse),
+  4. the block-sparse grouping kernel (csrc/msg_dense.cu's sparse kernel),
+     one scale a launch (msg_scale_sparse),
      against its plain version on the three sa1 scales, inputs from the real
      preparation at B=16, S=512, N=2048, nb=256: max abs diff <= 1e-4;
      prints each scale's tile activity;
@@ -23,7 +25,8 @@ Phases (any failed check raises, so the script exits non-zero):
      the same sa1 inputs, each scale folded in original point order: each
      of the four wrappers once a scale, counted (3 launches each), within
      1e-4 of its plain version; the mask ops (dense_msg_scale_2d,
-     dense_msg_scale_2d_batched) within 1e-4 of phase 4's K2 output, the
+     dense_msg_scale_2d_batched) within 1e-4 of phase 4's K2 output (and
+     whether they are bitwise equal to it: one chain on the same rows), the
      in-kernel-selection ops (fused_msg_scale, dense_msg_scale) within 1e-4
      of the mask op on every (b, s) whose selection equals
      dense_selection_mask's (the others are counted and printed); each
@@ -48,15 +51,24 @@ Phases (any failed check raises, so the script exits non-zero):
      records the inputs of the four one-hot gathers (sa1, sa2, both
      regressor heads' sa1); the gather kernel against its plain version on
      them (bitwise) and the scatter-add kernel on seeded cotangents (within
-     1e-5 * (1 + sum of |contributions|), atomics add in any order);
+     1e-5 * (1 + sum of |contributions|): its sums run in an order fixed
+     by the inputs, index_add_'s in another), launched twice at each shape with
+     bitwise-equal outputs, and grouped_gather's backward through it run
+     twice at each shape that needs a gradient, bitwise equal; each timed
+     beside torch.gather / index_add and its bound, per call (the host's
+     time between launches included) and on the device alone (calls queued
+     behind a spin kernel), with the slots per source row it sums;
   9. 4 training steps through the entry point with exactly 4 FPS, 4 gather
      and 3 scatter-add launches a step (sa1 gathers the input cloud, which
-     needs no gradient) and no grouping launch, finite
+     needs no gradient) and no grouping launch, counted by layer too, finite
      losses, the collision term computed, every parameter and BatchNorm
      statistic moved by the first step;
  10. the kernel route against the plain route on the card, one step each
      from the same weights and draws (deterministic FPS, no dropout), and
      the card against the CPU port at B=2, tolerances stated at each check;
+     a second kernel-route step from the same weights and draws, with the
+     number of gradients that are not bitwise equal to the first's printed
+     (not a check: other ops of the step may add in any order);
  11. training windows/s at B=8 (CUDA events over 10 steps after 2 warm-ups,
      a new polarity flip per step), the peak device memory of those steps,
      and the top device kernels of one step;
@@ -74,7 +86,7 @@ Phases (any failed check raises, so the script exits non-zero):
      MPJPE, the end-to-end windows/s and the shares of the wall time spent
      in host windowing and in the collision score;
  14. a `kernels` JSON line (times from CUDA events, bounds from this run's
-     inputs);
+     inputs), the gather and scatter-add also by training shape;
  15. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result without a CUDA device, or without the
@@ -84,6 +96,7 @@ repository's package beside it.
 import collections
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -145,6 +158,44 @@ def check_launches(what, launches, per_unit, units):
         want = per_unit.get(name, 0) * units
         if n != want:
             raise AssertionError(f"{what}: {name} launched {n} times, want {want}")
+
+
+def demangle(names, nvcc):
+    """``names`` demangled by the toolkit's ``cu++filt`` (beside ``nvcc``),
+    without parameter lists; the mangled names where it cannot."""
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    for flags in (["-p"], []):
+        try:
+            out = subprocess.run([filt] + flags, input="\n".join(names) + "\n",
+                                 capture_output=True, text=True, timeout=30)
+        except (OSError, subprocess.SubprocessError):
+            return list(names)
+        lines = out.stdout.splitlines()
+        if out.returncode == 0 and len(lines) == len(names):
+            return lines
+    return list(names)
+
+
+def ptxas_report(build_logs, nvcc):
+    """One line per kernel function of each source built in this run: its
+    name (each template instance apart), registers, stack frame and spill
+    bytes from ptxas' report."""
+    rows = []
+    for source, text in sorted(build_logs.items()):
+        fn, frame = None, ""
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                fn = m.group(1)
+            elif "spill" in line:
+                frame = line.strip()
+            elif fn and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line)
+                rows.append((source, fn, regs.group(1) if regs else "?", frame))
+                fn, frame = None, ""
+    names = demangle([r[1] for r in rows], nvcc) if rows else []
+    for (source, _, regs, frame), name in zip(rows, names):
+        log(f"  ptxas {source} {name}: {regs} registers, {frame}")
 
 
 def cuda_ms(torch, fn, iters, warmup=2):
@@ -332,6 +383,8 @@ def dense_ops_phase(torch, kgrp, sa1, l0, events, new_xyz, sq, k2_outs):
             err = (got - call(name, s, plain=True)()).abs().max().item()
             if takes_mask:   # the same function as K2 on the same selection
                 versus, vs_err = "K2", (got - k2_outs[s]).abs().max().item()
+                if torch.equal(got, k2_outs[s]):
+                    versus = "K2 (bitwise equal)"
             else:
                 versus = "dense_msg_scale_2d where the selections agree"
                 vs_err = torch.where(same[..., None], got - outs["dense_msg_scale_2d"][s],
@@ -484,6 +537,24 @@ def compare_steps(torch, name, a, b, loss_rtol, cos_min, norm_tol, buf_rtol,
         raise AssertionError(f"{name}: out of tolerance; gradients {bad[:5]}")
 
 
+def device_ms(torch, fn, iters=20):
+    """Mean device ms of ``fn`` over ``iters`` calls queued behind a spin
+    kernel of about 10 ms (torch.cuda._sleep), so the host has queued them
+    all before the first runs: the calls' device time without the host's
+    time between launches (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def top_device_kernels(torch, fn, reps):
     """Device kernels of ``reps`` calls of ``fn`` under torch.profiler ->
     [(name, ms per call, launches per call)], busiest first."""
@@ -570,17 +641,21 @@ def training_phases(torch, np, dev, state):
             raise AssertionError(f"onehot_gather {layer}: rows differ from "
                                  f"index_points, max abs diff {err}")
         flat_idx = idx.long().reshape(Bt, -1, 1).expand(-1, -1, C)
-        nbytes = 4 * (src.numel() + idx.numel() + got.numel())
+        nbytes = sum(t.numel() * t.element_size() for t in (src, idx, got))
         row = dict(layer=layer, shape=[Bt, Nt, C, S, K], max_abs_err=err,
+                   on_path=True,
                    ms=cuda_ms(torch, lambda: kga.onehot_gather(src, idx, act, nb, sb), 20),
                    plain_ms=cuda_ms(torch, lambda: kga.onehot_gather_plain(src, idx), 20),
                    library_ms=cuda_ms(torch, lambda: torch.gather(src, 1, flat_idx), 20))
         row["bound_ms"], row["bound_by"] = bound(0, nbytes)
+        row["device_ms"] = device_ms(torch, lambda: kga.onehot_gather(src, idx, act, nb, sb))
+        row["library_device_ms"] = device_ms(torch, lambda: torch.gather(src, 1, flat_idx))
         gather_rows.append(row)
         log(f"onehot_gather {layer} src {[Bt, Nt, C]} -> {[Bt, S, K, C]}: rows "
             f"bitwise equal (max abs diff {err}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
             f"ms, torch.gather {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}); device time alone: kernel "
+            f"{row['device_ms']:.4f} ms, torch.gather {row['library_device_ms']:.4f} ms")
 
         g = torch.randn(got.shape, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(20 + i))
@@ -591,10 +666,28 @@ def training_phases(torch, np, dev, state):
         torch.cuda.synchronize()
         if not (err <= limit).all():
             raise AssertionError(f"onehot_scatter_add {layer}: max diff {err.max().item()}")
+        # the same bits on a second launch, and through grouped_gather's
+        # backward twice where the layer needs a gradient
+        again = kga.onehot_scatter_add(g, idx, act, Nt, nb, sb)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"onehot_scatter_add {layer}: two launches differ by "
+                                 f"{(got - again).abs().max().item()}")
+        if on_path:
+            grads = []
+            for _ in range(2):
+                leaf = src.clone().requires_grad_(True)
+                kga.grouped_gather(leaf, idx, act, nb=nb, sb=sb, bwd="pallas").backward(g)
+                grads.append(leaf.grad)
+            torch.cuda.synchronize()
+            if not torch.equal(*grads):
+                raise AssertionError(f"grouped_gather {layer}: two backward runs differ")
+            del grads, leaf
         rows = (idx.long().reshape(Bt, -1)
                 + Nt * torch.arange(Bt, device=dev)[:, None]).reshape(-1)
         zeros, g_flat = torch.zeros((Bt * Nt, C), device=dev), g.reshape(-1, C)
-        nbytes = 4 * (g.numel() + idx.numel() + got.numel())
+        hits = torch.bincount(rows, minlength=Bt * Nt)
+        nbytes = sum(t.numel() * t.element_size() for t in (g, idx, got))
         row = dict(layer=layer, shape=[Bt, Nt, C, S, K], on_path=on_path,
                    max_abs_err=err.max().item(),
                    max_err_over_limit=(err / limit).max().item(),
@@ -602,31 +695,72 @@ def training_phases(torch, np, dev, state):
                    plain_ms=cuda_ms(torch, lambda: kga.onehot_scatter_add_plain(g, idx, Nt), 20),
                    library_ms=cuda_ms(torch, lambda: torch.index_add(zeros, 0, rows, g_flat), 20))
         row["bound_ms"], row["bound_by"] = bound(g.numel(), nbytes)
+        row["max_slots_per_row"] = int(hits.max().item())
+        row["mean_slots_per_held_row"] = hits[hits > 0].float().mean().item()
+        row["device_ms"] = device_ms(
+            torch, lambda: kga.onehot_scatter_add(g, idx, act, Nt, nb, sb))
+        row["library_device_ms"] = device_ms(
+            torch, lambda: torch.index_add(zeros, 0, rows, g_flat))
         scatter_rows.append(row)
-        log(f"onehot_scatter_add {layer} {[Bt, S, K, C]} -> {[Bt, Nt, C]}: max abs "
+        log(f"onehot_scatter_add {layer} {[Bt, S, K, C]} -> {[Bt, Nt, C]}: slots per "
+            f"held source row {row['mean_slots_per_held_row']:.1f} on average, "
+            f"{row['max_slots_per_row']} at most; max abs "
             f"diff {row['max_abs_err']:.3g} ({row['max_err_over_limit']:.3g} of the "
-            f"limit); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"limit), two launches bitwise equal"
+            + (", grouped_gather's backward twice bitwise equal" if on_path else "")
+            + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"index_add {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-            f"({row['bound_by']})")
-        del g, got, ref, limit, err, zeros, g_flat
+            f"({row['bound_by']}); device time alone: kernel {row['device_ms']:.4f} ms, "
+            f"index_add {row['library_device_ms']:.4f} ms")
+        del g, got, again, ref, limit, err, zeros, g_flat, hits
     del captured
 
-    # 9. the training run through the entry point, counted
+    # 9. the training run through the entry point, counted; the gathers'
+    # launches are also counted by layer (the i-th gather of a step is
+    # GATHER_LAYERS[i]), the scatter-adds' by hooks on the gather's
+    # backward node
+    by_layer = collections.Counter()
+    calls = [0]
+
+    def counting(src, idx, act, nb=128, sb=8, bwd="xla"):
+        layer = GATHER_LAYERS[calls[0] % len(GATHER_LAYERS)]
+        calls[0] += 1
+        n0 = kga.onehot_gather.launches
+        out = real_gather(src, idx, act, nb=nb, sb=sb, bwd=bwd)
+        by_layer["onehot_gather", layer] += kga.onehot_gather.launches - n0
+        if out.grad_fn is not None:
+            mark = {}
+
+            def pre(grad_outputs):
+                mark["n"] = kga.onehot_scatter_add.launches
+
+            def post(grad_inputs, grad_outputs):
+                by_layer["onehot_scatter_add", layer] += (
+                    kga.onehot_scatter_add.launches - mark["n"])
+
+            out.grad_fn.register_prehook(pre)
+            out.grad_fn.register_hook(post)
+        return out
+
     before = {k: v.detach().clone() for k, v in net.state_dict().items()}
     reset_launches()
+    klayers.grouped_gather = counting
     t0 = time.perf_counter()
-    for i in range(TRAIN_STEPS):
-        losses = step(batches[1 + i], gen)
-        if i == 0:
-            after = net.state_dict()
-            still = [k for k, v in before.items() if torch.equal(v, after[k])]
-            if still:
-                raise AssertionError(f"the first step left {still[:5]} unchanged")
-        log(f"train step {i}: " + json.dumps(losses))
-        if not all(np.isfinite(v) for v in losses.values()):
-            raise AssertionError(f"train step {i}: a loss term is not finite")
-        if not losses["loss_interpen"] > 0:
-            raise AssertionError(f"train step {i}: no collision term")
+    try:
+        for i in range(TRAIN_STEPS):
+            losses = step(batches[1 + i], gen)
+            if i == 0:
+                after = net.state_dict()
+                still = [k for k, v in before.items() if torch.equal(v, after[k])]
+                if still:
+                    raise AssertionError(f"the first step left {still[:5]} unchanged")
+            log(f"train step {i}: " + json.dumps(losses))
+            if not all(np.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"train step {i}: a loss term is not finite")
+            if not losses["loss_interpen"] > 0:
+                raise AssertionError(f"train step {i}: no collision term")
+    finally:
+        klayers.grouped_gather = real_gather
     train_s = time.perf_counter() - t0
     launches = read_launches()
     log(f"training: {TRAIN_STEPS} steps of {TRAIN_B} windows in {train_s:.3f} s; "
@@ -635,6 +769,19 @@ def training_phases(torch, np, dev, state):
     check_launches("training", launches,
                    {"fps": 4, "onehot_gather": 4, "onehot_scatter_add": 3},
                    TRAIN_STEPS)
+    for row in gather_rows:
+        row["launches"] = by_layer["onehot_gather", row["layer"]]
+    for row in scatter_rows:
+        row["launches"] = by_layer["onehot_scatter_add", row["layer"]]
+    log("training: launches by layer " + json.dumps(
+        {f"{name} {layer}": n for (name, layer), n in sorted(by_layer.items())}))
+    for name, rows in (("onehot_gather", gather_rows),
+                       ("onehot_scatter_add", scatter_rows)):
+        want = [TRAIN_STEPS if name == "onehot_gather" or r["on_path"] else 0
+                for r in rows]
+        if [r["launches"] for r in rows] != want:
+            raise AssertionError(f"training: {name} launches by layer "
+                                 f"{[r['launches'] for r in rows]}, want {want}")
 
     # 10. kernel route vs plain route, and card vs CPU: one step each from the
     # same weights and given draws, deterministic FPS, no dropout
@@ -647,14 +794,23 @@ def training_phases(torch, np, dev, state):
     skip = batchnorm_cancelled_biases(net)
     draws, noise = given_draws(torch, batches[0], cfg, seed=7)
     runs = {}
-    for pallas_gather in (True, False):
+    for key, pallas_gather in (("kernel", True), ("plain", False), ("kernel again", True)):
         net_r, step_r = build_step(route_cfg(pallas_gather), dev)
         losses = step_r(batches[0], draws=draws, noise=noise)
-        runs[pallas_gather] = (losses, *step_state(net_r))
+        runs[key] = (losses, *step_state(net_r))
         del net_r, step_r
+    # reported, not checked: other ops of the step (index_add_ in the plain
+    # ops, cuBLAS, reductions) may still add in any order
+    grads_a, grads_b = runs["kernel"][1], runs.pop("kernel again")[1]
+    differ = sorted(k for k in grads_a if not torch.equal(grads_a[k], grads_b[k]))
+    log(f"kernel route, two steps from the same weights and draws: "
+        f"{len(grads_a) - len(differ)} of {len(grads_a)} gradients bitwise equal"
+        + (f"; differ: {differ[:8]}" if differ else ""))
+    runs[True], runs[False] = runs.pop("kernel"), runs.pop("plain")
     # The gather is an exact copy, so the forward is the same on both routes;
-    # the backward sums the slot cotangents in another order (atomics on both
-    # routes), and the gradients of earlier layers inherit that rounding.
+    # the backward sums the slot cotangents in another order (one fixed by
+    # the inputs in the kernel, index_add_'s atomics on the plain route), and
+    # the gradients of earlier layers inherit that rounding.
     compare_steps(torch, "kernel route vs plain route (card, B=8)", runs[True],
                   runs[False], loss_rtol=1e-6, cos_min=1 - 1e-6, norm_tol=1e-4,
                   buf_rtol=1e-6, skip=skip)
@@ -892,10 +1048,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"build: {', '.join(f'csrc/{k}.cu' for k in _build.KERNELS)} -> sm_90a "
         f"in {build_s:.1f} s")
-    for name, text in sorted(_build.build_logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    ptxas_report(_build.build_logs, _build.nvcc_path())
 
     cfg = DEFAULT_CONFIG.replace(model=ModelConfig(n_points=N))
     state = init_weights(torch.Generator().manual_seed(0), cfg.model)
@@ -1082,7 +1235,8 @@ def main() -> int:
     # calls of one pass: the three serving FPS shapes and sa1 scales of a
     # forward, the fused sa1 call of an evaluation forward, the four gathers
     # and three scatter-adds of a training step, a dense op's three sa1
-    # scales. launches: every driven path (serving's 4 requests, training's
+    # scales; then one entry per training shape of the gather and the
+    # scatter-add. launches: every driven path (serving's 4 requests, training's
     # 4 steps, the evaluations' 8 + 3 batches, phase 4c's ops), also listed
     # by path.
     by_path = {"serving": launches, "training": train_launches,
@@ -1106,10 +1260,10 @@ def main() -> int:
         entry("fps", "ev2hands_tpu_torch/csrc/fps.cu",
               "ev2hands_tpu/ops/pallas_ops.py:56", fps_rows,
               max(r["max_abs_err"] for r in fps_rows)),
-        entry("msg_sparse", "ev2hands_tpu_torch/csrc/msg_sparse_fused.cu",
+        entry("msg_sparse", "ev2hands_tpu_torch/csrc/msg_dense.cu",
               "ev2hands_tpu/ops/pallas_grouping.py:595", grp_rows,
               max(r["max_abs_err"] for r in grp_rows)),
-        entry("msg_fused_sparse", "ev2hands_tpu_torch/csrc/msg_sparse_fused.cu",
+        entry("msg_fused_sparse", "ev2hands_tpu_torch/csrc/msg_dense.cu",
               "ev2hands_tpu/ops/pallas_grouping.py:823", fused_rows,
               fused_rows[0]["max_abs_err"]),
         entry("onehot_gather", "ev2hands_tpu_torch/csrc/gather.cu",
@@ -1122,6 +1276,25 @@ def main() -> int:
     ] + [entry(name, "ev2hands_tpu_torch/csrc/msg_dense.cu", replaces, dense_rows[name],
                max(r["max_abs_err"] for r in dense_rows[name]))
          for name, replaces, _ in DENSE_OPS]
+    # the gather and the scatter-add by training shape, each with the
+    # launches the counted training run made at that shape
+    for name, replaces, rows, library in (
+            ("onehot_gather", "ev2hands_tpu/ops/pallas_gather.py:142", gather_rows,
+             "torch.gather"),
+            ("onehot_scatter_add", "ev2hands_tpu/ops/pallas_gather.py:230",
+             scatter_rows, "index_add")):
+        for r in rows:
+            if not r["on_path"]:
+                continue
+            kernels.append({
+                "name": f"{name}[{r['layer']}]", "route": "cuda",
+                "source": "ev2hands_tpu_torch/csrc/gather.cu", "replaces": replaces,
+                "launches": r["launches"],
+                "launches_by_path": {"training": r["launches"]},
+                "shape": r["shape"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "library": library})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

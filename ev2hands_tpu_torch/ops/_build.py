@@ -21,7 +21,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 # Every kernel source of the port: csrc/<name>.cu
-KERNELS = ("fps", "msg_sparse_fused", "gather", "msg_dense")
+KERNELS = ("fps", "gather", "msg_dense")
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -12,22 +12,25 @@ Counterpart of ``ev2hands_tpu/ops/pallas_gather.py``:
   two are bitwise equal;
 * ``onehot_scatter_add`` (``_onehot_scatter_add``) is the gather's VJP, the
   sum of the slot cotangents that hit each source row: the kernel on a CUDA
-  tensor, ``onehot_scatter_add_plain`` (one ``index_add_``) on a CPU
-  tensor, equal up to summation order;
+  tensor, which sums each row's slots in an order fixed by the inputs and so
+  gives the same bits run to run, within 1e-5 * (1 + the sum of
+  |contributions|) of ``onehot_scatter_add_plain`` (one ``index_add_``,
+  another order), which runs on a CPU tensor;
 * ``grouped_gather`` is the gather as an ``autograd.Function`` whose
   backward is the scatter-add kernel (``bwd="pallas"``) or the plain
   scatter-add (``bwd="xla"``), the JAX package's switch names.
 
 The TPU kernels split each f32 value into three bf16 terms (``split3_bf16``,
 ``_seg_width``) so that a one-hot product on the bf16 matrix unit copies
-it exactly. A row copy on the card is exact by itself, so neither is
+it exactly. A copy on the card is exact by itself, so neither is
 ported. ``act``, ``nb`` and ``sb`` keep the JAX signatures: the kernels
-visit only the K slots of a centroid, so they do not read ``act``.
+walk the slots themselves, so they do not read ``act``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,8 +39,9 @@ from ev2hands_tpu_torch.ops.pointnet import index_points
 
 onehot_gather_plain = index_points
 
-# Slots per centroid that the kernels stage in shared memory.
-_MAX_K = 1024
+# Source rows the scatter-add counts in shared memory (csrc/gather.cu kMaxN).
+_MAX_N = 56 * 1024
+_INT_MAX = 2**31 - 1
 
 
 def pos_tile_activity(pos: torch.Tensor, nb: int, n: int) -> torch.Tensor:
@@ -67,24 +71,46 @@ def _check(name, idx, act, n, nb, sb):
         raise ValueError(f"{name}: act is {tuple(act.shape)}, want {(B, S, n // nb)}")
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gather")
+    lib.onehot_gather_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.onehot_scatter_add_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     for fn in (lib.onehot_gather_launch, lib.onehot_scatter_add_launch):
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.onehot_scatter_add_scratch_ints.argtypes = [ctypes.c_int] * 5
+    lib.onehot_scatter_add_scratch_ints.restype = ctypes.c_longlong
     return lib
 
 
-def _cuda_operands(name, data, idx):
+def _launch(fn, device: torch.device, *args) -> int:
+    """Call the C launcher ``fn`` with ``args`` and the raw handle of the
+    current stream of ``device``, made current for the call where it is not
+    (at the narrow training shapes the host's time is what a call costs)."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch(fn, device, *args)
+    return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+
+
+def _cuda_operands(name, data, idx, n):
+    """Check a CUDA operand ``data`` ([B, N, C] or [B, S, K, C]) and ``idx``
+    [B, S, K] against the kernels -> both contiguous, idx as int64 (the
+    ball query's own type; any other is converted)."""
     if data.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {data.device}")
     if data.dtype != torch.float32:
         raise ValueError(f"{name}: want float32, got {data.dtype}")
     if idx.device != data.device:
         raise ValueError(f"{name}: idx must be on {data.device}")
-    if idx.shape[2] > _MAX_K:
-        raise ValueError(f"{name}: K={idx.shape[2]} > {_MAX_K} slots per centroid")
-    return data.contiguous(), idx.to(torch.int32).contiguous()
+    B, S, K = idx.shape
+    C = data.shape[-1]
+    if n > _MAX_N or max(B * S * K * C, B * n * C) > _INT_MAX:
+        raise ValueError(f"{name}: N={n} (at most {_MAX_N}) or B*S*K*C={B * S * K * C} "
+                         "too large for the kernel's int32 indexing")
+    return data.contiguous(), idx.long().contiguous()
 
 
 def onehot_gather(src: torch.Tensor, idx: torch.Tensor, act: torch.Tensor,
@@ -95,13 +121,11 @@ def onehot_gather(src: torch.Tensor, idx: torch.Tensor, act: torch.Tensor,
     _check("onehot_gather", idx, act, N, nb, sb)
     if src.device.type == "cpu":
         return onehot_gather_plain(src, idx)
-    src, idx_c = _cuda_operands("onehot_gather", src, idx)
+    src, idx_c = _cuda_operands("onehot_gather", src, idx, N)
     S, K = idx.shape[1], idx.shape[2]
     out = torch.empty((B, S, K, C), dtype=torch.float32, device=src.device)
-    with torch.cuda.device(src.device):
-        err = _lib().onehot_gather_launch(
-            src.data_ptr(), idx_c.data_ptr(), out.data_ptr(), B, N, S, K, C,
-            torch.cuda.current_stream().cuda_stream)
+    err = _launch(_lib().onehot_gather_launch, src.device, src.data_ptr(),
+                  idx_c.data_ptr(), out.data_ptr(), B, N, S, K, C)
     if err != 0:
         raise RuntimeError(f"onehot_gather kernel launch failed: CUDA error {err}")
     onehot_gather.launches += 1
@@ -115,17 +139,21 @@ def onehot_scatter_add(g: torch.Tensor, idx: torch.Tensor, act: torch.Tensor,
                        n: int, nb: int = 128, sb: int = 8) -> torch.Tensor:
     """g [B, S, K, C] slot cotangents, idx [B, S, K] positions into n ->
     [B, n, C]: for each source row, the sum of the cotangents of the slots
-    that hold it (the VJP of ``onehot_gather``)."""
+    that hold it (the VJP of ``onehot_gather``). On the card each row's sum
+    runs in an order fixed by the inputs (its slots in ascending order
+    s * K + k, split into segments and streams as ``csrc/gather.cu`` says),
+    so it has the same bits every run."""
     B, S, K, C = g.shape
     _check("onehot_scatter_add", idx, act, n, nb, sb)
     if g.device.type == "cpu":
         return onehot_scatter_add_plain(g, idx, n)
-    g, idx_c = _cuda_operands("onehot_scatter_add", g, idx)
+    g, idx_c = _cuda_operands("onehot_scatter_add", g, idx, n)
+    lib = _lib()
     out = torch.empty((B, n, C), dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        err = _lib().onehot_scatter_add_launch(
-            g.data_ptr(), idx_c.data_ptr(), out.data_ptr(), B, n, S, K, C,
-            torch.cuda.current_stream().cuda_stream)
+    scratch = torch.empty(lib.onehot_scatter_add_scratch_ints(B, n, S, K, C),
+                          dtype=torch.int32, device=g.device)
+    err = _launch(lib.onehot_scatter_add_launch, g.device, g.data_ptr(),
+                  idx_c.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, n, S, K, C)
     if err != 0:
         raise RuntimeError(f"onehot_scatter_add kernel launch failed: CUDA error {err}")
     onehot_scatter_add.launches += 1

@@ -21,8 +21,8 @@ eval path runs for the large sa1 scales:
   activities, each output section pooled under its own scale's mask
   (``msg_fused_scales_sparse_plain`` on a CPU tensor).
 
-On a CUDA tensor both wrappers launch the one kernel of
-``csrc/msg_sparse_fused.cu``, ``msg_scale_sparse`` as its one-scale case.
+On a CUDA tensor both wrappers launch the block-sparse kernel of
+``csrc/msg_dense.cu``, ``msg_scale_sparse`` as its one-scale case.
 
 The dense counterparts pool one scale over every point in original order,
 with no Morton order and no tile skip. The JAX package keeps them as
@@ -38,8 +38,9 @@ wrapper named after its Pallas function:
   ``ball_selection_mask`` does from elementwise f32 distances
   (``dense_msg_scale_plain`` on a CPU tensor).
 
-On a CUDA tensor the first two launch one kernel of ``csrc/msg_dense.cu``
-and the last two the other.
+On a CUDA tensor the first two launch the mask kernel of
+``csrc/msg_dense.cu`` and the last two its ball kernel. All three kernels
+run one chain, so they share its width limits (``_MAX_WIDTHS``).
 """
 
 from __future__ import annotations
@@ -197,19 +198,34 @@ def _pooled_chain(folded: FoldedScale, keep: torch.Tensor, chunk: int) -> torch.
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("msg_sparse_fused")
+    lib = _build.load("msg_dense")
     ints = ctypes.POINTER(ctypes.c_int)
-    lib.msg_sparse_fused_launch.argtypes = (
+    lib.msg_sparse_launch.argtypes = (
         [ctypes.c_void_p] * 9 + [ints] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    lib.msg_sparse_fused_launch.restype = ctypes.c_int
-    lib.msg_sparse_fused_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ints]
-    lib.msg_sparse_fused_smem_bytes.restype = ctypes.c_size_t
+    lib.msg_sparse_launch.restype = ctypes.c_int
+    lib.msg_sparse_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ints]
+    lib.msg_sparse_smem_bytes.restype = ctypes.c_size_t
+    lib.msg_dense_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.msg_dense_smem_bytes.restype = ctypes.c_size_t
+    lib.msg_dense_mask_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.msg_dense_mask_launch.restype = ctypes.c_int
+    lib.msg_dense_ball_launch.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                                      ctypes.c_void_p])
+    lib.msg_dense_ball_launch.restype = ctypes.c_int
     return lib
 
 
-# Most scales, and output channels per scale, the kernel takes.
+# Most scales the block-sparse kernel takes, and the widest (C1, C2, C3) of a
+# scale that the chain of csrc/msg_dense.cu takes; TEHNet's widest MSG scale
+# is (128, 196, 256).
 _MAX_SCALES = 3
-_MAX_C3 = 256
+_MAX_WIDTHS = (128, 256, 256)
+
+
+def _widths_fit(widths: Tuple[int, int, int]) -> bool:
+    return all(0 < c <= m for c, m in zip(widths, _MAX_WIDTHS))
 
 
 def _check_inputs(name: str, f: FoldedScale, sel: torch.Tensor, act: torch.Tensor,
@@ -244,7 +260,7 @@ def _launch(name: str, f: FoldedScale, sel: torch.Tensor, act: torch.Tensor,
     R = len(widths)
     lib = _lib()
     c_widths = (ctypes.c_int * (3 * R))(*[c for w in widths for c in w])
-    if lib.msg_sparse_fused_smem_bytes(N, R, c_widths) > _MAX_SMEM:
+    if lib.msg_sparse_smem_bytes(N, R, c_widths) > _MAX_SMEM:
         raise ValueError(f"{name}: widths {tuple(widths)} at N={N} exceed the "
                          "kernel's shared memory")
     u, v, sel_c, W2, b2, W3, b3 = (
@@ -252,7 +268,7 @@ def _launch(name: str, f: FoldedScale, sel: torch.Tensor, act: torch.Tensor,
     act_c = act.contiguous()
     out = torch.empty((B, S, f.W3.shape[1]), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
-        err = lib.msg_sparse_fused_launch(
+        err = lib.msg_sparse_launch(
             u.data_ptr(), v.data_ptr(), sel_c.data_ptr(), act_c.data_ptr(),
             W2.data_ptr(), b2.data_ptr(), W3.data_ptr(), b3.data_ptr(),
             out.data_ptr(), c_widths, B, S, N, R, nb, C1t,
@@ -273,8 +289,9 @@ def msg_scale_sparse(
     if folded.u.device.type != "cuda":
         raise ValueError(f"msg_scale_sparse: unsupported device {folded.u.device}")
     C1, C2, C3 = folded.W2.shape[0], folded.W2.shape[1], folded.W3.shape[1]
-    if C3 > _MAX_C3:
-        raise ValueError(f"msg_scale_sparse: C3={C3} > {_MAX_C3} is not supported")
+    if not _widths_fit((C1, C2, C3)):
+        raise ValueError(f"msg_scale_sparse: widths {(C1, C2, C3)} exceed the "
+                         f"kernel's {_MAX_WIDTHS}")
     sel = sel_p[:, None]   # [B, 1, S, N]: the kernel's one-scale mask
     _check_inputs("msg_scale_sparse", folded, sel, act, nb, 1)
     out = _launch("msg_scale_sparse", folded, sel, act, nb, [(C1, C2, C3)])
@@ -354,10 +371,10 @@ def msg_fused_scales_sparse(
                          f"blocks; want 1 to {_MAX_SCALES} of each")
     if (tuple(sum(w[i] for w in widths) for i in range(3))
             != (stacked.W2.shape[0], stacked.W2.shape[1], stacked.W3.shape[1])
-            or any(min(w) <= 0 or w[2] > _MAX_C3 for w in widths)):
+            or not all(_widths_fit(w) for w in widths)):
         raise ValueError(f"msg_fused_scales_sparse: blocks {tuple(blocks)} and sections "
                          f"{tuple(sections)} do not fit the stacked weights or the "
-                         f"kernel (at most {_MAX_C3} channels a section)")
+                         f"kernel (each scale at most {_MAX_WIDTHS})")
     _check_inputs("msg_fused_scales_sparse", stacked, sel_all, act, nb, R)
     out = _launch("msg_fused_scales_sparse", stacked, sel_all, act, nb, widths)
     msg_fused_scales_sparse.launches += 1
@@ -365,11 +382,6 @@ def msg_fused_scales_sparse(
 
 
 msg_fused_scales_sparse.launches = 0
-
-
-# Widest (C1, C2, C3) the dense kernels take; TEHNet's widest MSG scale is
-# (128, 196, 256).
-_DENSE_MAX_WIDTHS = (128, 256, 256)
 
 
 def dense_msg_scale_2d_plain(
@@ -407,21 +419,6 @@ def _on_cpu(name: str, t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-@functools.lru_cache(maxsize=None)
-def _dense_lib() -> ctypes.CDLL:
-    lib = _build.load("msg_dense")
-    lib.msg_dense_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.msg_dense_smem_bytes.restype = ctypes.c_size_t
-    lib.msg_dense_mask_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    lib.msg_dense_mask_launch.restype = ctypes.c_int
-    lib.msg_dense_ball_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                                      ctypes.c_void_p])
-    lib.msg_dense_ball_launch.restype = ctypes.c_int
-    return lib
-
-
 def _dense_operands(name: str, f: FoldedScale, extra: dict, list_len: int):
     """Check ``f`` and the ``extra`` tensors (name -> (tensor, wanted
     shape)) against the dense kernels -> (data pointers of the contiguous
@@ -437,10 +434,10 @@ def _dense_operands(name: str, f: FoldedScale, extra: dict, list_len: int):
             raise ValueError(f"{name}: {field} is {tuple(named[field].shape)}, want {shape}")
     if any(t.dtype != torch.float32 or t.device != f.u.device for t in named.values()):
         raise ValueError(f"{name}: want float32 tensors on one device")
-    if any(c > m for c, m in zip((C1, C2, C3), _DENSE_MAX_WIDTHS)):
+    if not _widths_fit((C1, C2, C3)):
         raise ValueError(f"{name}: widths {(C1, C2, C3)} exceed the kernel's "
-                         f"{_DENSE_MAX_WIDTHS}")
-    lib = _dense_lib()
+                         f"{_MAX_WIDTHS}")
+    lib = _lib()
     if lib.msg_dense_smem_bytes(C1, C2, C3, list_len) > _MAX_SMEM:
         raise ValueError(f"{name}: N={N} does not fit the kernel's shared memory")
     contiguous = {k: t.contiguous() for k, t in named.items()}

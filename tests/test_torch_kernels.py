@@ -5,6 +5,8 @@ Marked ``cuda``: without a CUDA device every test skips. On the H100 run
 kernels with nvcc).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -192,18 +194,29 @@ def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
 
 
 def _gather_case(rng, B, N, S, K, C, device):
-    """Clustered, heavily duplicated positions (the backfill pattern of a
-    ball query) and a source of C channels."""
+    """Clustered, heavily duplicated int64 positions (the backfill pattern
+    and the index type of a ball query) and a source of C channels."""
     src = torch.from_numpy(rng.randn(B, N, C).astype(np.float32)).to(device)
     base = rng.randint(0, N, (B, S, 1))
     idx = np.clip(base + rng.randint(-40, 41, (B, S, K)), 0, N - 1)
     idx[:, :, K // 2:] = idx[:, :, :1]
-    return src, torch.from_numpy(idx.astype(np.int32)).to(device)
+    return src, torch.from_numpy(idx.astype(np.int64)).to(device)
 
 
-# (B, N, S, K, C): one small shape, and the training path's sa1 and sa2
+# (B, N, S, K, C): one small shape; the training path's sa1, sa2 and
+# regressor heads' sa1; one whose B*S*K*C (825) is not a multiple of 4,
+# which takes the gather's scalar tail (S=5 with a centroid block of 1);
+# and N = 12,288, whose row counts fill the scatter's 48 KB of default
+# shared memory, so its scan kernel (128 bytes of static shared memory
+# besides) needs the raised limit
 GATHER_SHAPES = [(2, 256, 16, 24, 45), (8, 2048, 512, 224, 8),
-                 (8, 512, 128, 192, 323)]
+                 (8, 512, 128, 192, 323), (8, 2048, 128, 192, 7),
+                 (3, 256, 5, 11, 5), (1, 12288, 64, 32, 4)]
+
+
+def _sb(S):
+    """The largest centroid block up to 8 that divides S."""
+    return math.gcd(S, 8)
 
 
 @pytest.mark.parametrize("shape", GATHER_SHAPES)
@@ -212,28 +225,47 @@ def test_onehot_gather_kernel_bitwise(cuda, shape):
     src, idx = _gather_case(np.random.RandomState(C), B, N, S, K, C, cuda)
     act = tga.pos_tile_activity(idx, 128, N)
     launches = tga.onehot_gather.launches
-    got = tga.onehot_gather(src, idx, act)
+    got = tga.onehot_gather(src, idx, act, sb=_sb(S))
     torch.cuda.synchronize()
     assert tga.onehot_gather.launches == launches + 1
     assert torch.equal(got, tga.onehot_gather_plain(src, idx))
 
 
-@pytest.mark.parametrize("shape", GATHER_SHAPES)
-def test_onehot_scatter_add_kernel_matches_plain(cuda, shape):
-    """Within 1e-5 * (1 + the sum of |contributions|) per element: f32
-    atomics add in another order than index_add_."""
+def _scatter_case(shape, device):
     B, N, S, K, C = shape
     rng = np.random.RandomState(C + 1)
-    _, idx = _gather_case(rng, B, N, S, K, C, cuda)
-    g = torch.from_numpy(rng.randn(B, S, K, C).astype(np.float32)).to(cuda)
-    act = tga.pos_tile_activity(idx, 128, N)
+    _, idx = _gather_case(rng, B, N, S, K, C, device)
+    g = torch.from_numpy(rng.randn(B, S, K, C).astype(np.float32)).to(device)
+    return g, idx, tga.pos_tile_activity(idx, 128, N)
+
+
+@pytest.mark.parametrize("shape", GATHER_SHAPES)
+def test_onehot_scatter_add_kernel_matches_plain(cuda, shape):
+    """Within 1e-5 * (1 + the sum of |contributions|) per element: the
+    kernel sums each row in ascending slot order, index_add_ in another."""
+    B, N, S, K, C = shape
+    g, idx, act = _scatter_case(shape, cuda)
     launches = tga.onehot_scatter_add.launches
-    got = tga.onehot_scatter_add(g, idx, act, N)
+    got = tga.onehot_scatter_add(g, idx, act, N, sb=_sb(S))
     torch.cuda.synchronize()
     assert tga.onehot_scatter_add.launches == launches + 1
     ref = tga.onehot_scatter_add_plain(g, idx, N)
     bound = 1e-5 * (1 + tga.onehot_scatter_add_plain(g.abs(), idx, N))
     assert ((got - ref).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("shape", GATHER_SHAPES)
+def test_onehot_scatter_add_kernel_deterministic(cuda, shape):
+    """Two launches on the same inputs give the same bits, also where the
+    backfill puts half of every centroid's slots on one row (the sum order
+    is fixed by the inputs, not by the schedule)."""
+    B, N, S, K, C = shape
+    g, idx, act = _scatter_case(shape, cuda)
+    first = tga.onehot_scatter_add(g, idx, act, N, sb=_sb(S))
+    torch.cuda.synchronize()
+    second = tga.onehot_scatter_add(g, idx, act, N, sb=_sb(S))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_grouped_gather_kernel_backward_matches_plain(cuda):
@@ -250,6 +282,22 @@ def test_grouped_gather_kernel_backward_matches_plain(cuda):
         grads[bwd] = s.grad
     bound = 1e-5 * (1 + tga.onehot_scatter_add_plain(ct.abs(), idx, 512))
     assert ((grads["pallas"] - grads["xla"]).abs() <= bound).all()
+
+
+def test_grouped_gather_kernel_backward_deterministic(cuda):
+    """grouped_gather's backward through the scatter-add kernel gives the
+    same gradient bits on two runs."""
+    src, idx = _gather_case(np.random.RandomState(4), 2, 512, 64, 96, 11, cuda)
+    act = tga.pos_tile_activity(idx, 128, 512)
+    ct = torch.randn(2, 64, 96, 11, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(4))
+    grads = []
+    for _ in range(2):
+        s = src.clone().requires_grad_(True)
+        (tga.grouped_gather(s, idx, act, bwd="pallas") * ct).sum().backward()
+        torch.cuda.synchronize()
+        grads.append(s.grad)
+    assert torch.equal(grads[0], grads[1])
 
 
 # sa1's three scales and the regressor heads' two, each with its radius and K
