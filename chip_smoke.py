@@ -8,8 +8,15 @@ Phases (any failed check raises, so the script exits non-zero):
   2. build every kernel of the port from ev2hands_tpu_torch/csrc with nvcc
      for sm_90a, one process per source, timed, and print each kernel
      function's registers, stack frame and spill bytes from ptxas;
-  3. the FPS kernel against its plain version on ERPC clouds at B=16, at the
-     three serving shapes (2048->512, 2048->128, 512->128): equal indices;
+  3. the FPS kernel against its plain version on ERPC clouds at its three
+     shapes (2048->512, 512->128, 2048->128) at the serving batch (B=16),
+     the training batch (B=8, random starts) and the evaluation batch
+     (B=32): equal indices; each timed with its microseconds a greedy step
+     and its chain floor (the same kernel with no distance work: only the
+     steps' barriers and reductions); then the sweep of the kernel's
+     instantiations at N = 8192, 2048 and 512 (each thread count that holds
+     N, with the two redux.sync and with the 64-bit butterfly, equal
+     indices, and the floor), timed;
   4. the block-sparse grouping kernel (csrc/msg_dense.cu's sparse kernel),
      one scale a launch (msg_scale_sparse),
      against its plain version on the three sa1 scales, inputs from the real
@@ -63,15 +70,20 @@ Phases (any failed check raises, so the script exits non-zero):
      needs no gradient) and no grouping launch, counted by layer too, finite
      losses, the collision term computed, every parameter and BatchNorm
      statistic moved by the first step;
- 10. the kernel route against the plain route on the card, one step each
-     from the same weights and draws (deterministic FPS, no dropout), and
-     the card against the CPU port at B=2, tolerances stated at each check;
-     a second kernel-route step from the same weights and draws, with the
-     number of gradients that are not bitwise equal to the first's printed
-     (not a check: other ops of the step may add in any order);
+ 10. two kernel-route steps from the same weights and draws (deterministic
+     FPS, no dropout): every loss term, gradient, BatchNorm statistic and
+     parameter after Adam bitwise equal; the cotangent at every boundary the
+     backward crosses (each module's output, three_nn_interpolate,
+     attention, MANO, the collision term) is recorded, and where the steps
+     differ the first boundary in backward order whose cotangent differs is
+     named; then the kernel route against the plain route on the card, one
+     step each from the same weights and draws, and the card against the
+     CPU port at B=2, tolerances stated at each check;
  11. training windows/s at B=8 (CUDA events over 10 steps after 2 warm-ups,
      a new polarity flip per step), the peak device memory of those steps,
-     and the top device kernels of one step;
+     the host syncs of one step by site (none from ops/fps.py; and the
+     count with the checked public fps in the model's place), and the top
+     device kernels of one step;
  12. Ev2Hands-S evaluation: evaluate_dataset at full TEHNet width in the
      fused configuration (pallas_fused_msg=True, B=32, N=2048, seeded
      weights, synthetic MANO) on synthetic rows held in memory (65,536
@@ -86,7 +98,8 @@ Phases (any failed check raises, so the script exits non-zero):
      MPJPE, the end-to-end windows/s and the shares of the wall time spent
      in host windowing and in the collision score;
  14. a `kernels` JSON line (times from CUDA events, bounds from this run's
-     inputs), the gather and scatter-add also by training shape;
+     inputs), the gather and scatter-add also by training shape, FPS with
+     its chain floor, every phase-3 shape and the sweep;
  15. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result without a CUDA device, or without the
@@ -295,6 +308,105 @@ def where_the_time_goes(torch, pipe, requests):
         log(f"  kernel {ms:9.3f} ms x{count:<5d} {name[:100]}")
 
 
+def fps_phase(torch, np, kfps, index_points, l0, l1, dev):
+    """Phase 3: the FPS kernel against its plain version (equal indices) at
+    the serving (B=16, start 0), training (B=8, random starts) and
+    evaluation (B=32, start 0) shapes, each timed with its microseconds a
+    greedy step, its chain floor (the same kernel with no distance work) and
+    its bound; then the sweep of the kernel's instantiations at N = 8192,
+    2048 and 512. -> (the serving rows, which make the kernels line's pass,
+    the sweep's rows)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tb = l0[:TRAIN_B].contiguous()
+    t_start = [torch.randint(0, n, (TRAIN_B,), generator=gen, device=dev,
+                             dtype=torch.int32) for n in (N, 512, N)]
+    tb1 = index_points(tb, kfps.fps(tb, 512, t_start[0])).contiguous()
+    eb = torch.cat([l0, l0.flip(1)]).contiguous()      # B=32, rows differ
+    eb1 = index_points(eb, kfps.fps(eb, 512)).contiguous()
+    shapes = [
+        ("serving", "sa1 2048->512", l0, 512, None),
+        ("serving", "sa2 512->128", l1, 128, None),
+        ("serving", "regressor 2048->128", l0, 128, None),
+        ("training", "sa1 2048->512", tb, 512, t_start[0]),
+        ("training", "sa2 512->128", tb1, 128, t_start[1]),
+        ("training", "regressor 2048->128", tb, 128, t_start[2]),
+        ("evaluation", "sa1 2048->512", eb, 512, None),
+        ("evaluation", "sa2 512->128", eb1, 128, None),
+        ("evaluation", "regressor 2048->128", eb, 128, None),
+    ]
+    rows = []
+    for path, name, xyz, npoint, start in shapes:
+        Bx, n = xyz.shape[:2]
+        got = kfps.fps(xyz, npoint, start)
+        ref = kfps.fps_plain(xyz, npoint, start)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not torch.equal(got, ref):
+            bad = (got != ref).nonzero()[:5].tolist()
+            raise AssertionError(f"FPS {path} {name}: indices differ at {bad}")
+        def run(work=True):
+            return kfps.fps_unchecked(xyz, npoint, start, work=work)
+
+        ms = cuda_ms(torch, run, 20)
+        floor_ms = cuda_ms(torch, lambda: run(False), 20)
+        dev_ms = device_ms(torch, run)
+        floor_dev_ms = device_ms(torch, lambda: run(False))
+        plain_ms = cuda_ms(torch, lambda: kfps.fps_plain(xyz, npoint, start), 3, 1)
+        # 9 f32 ops per distance update (3 sub, 3 mul, 2 add, 1 min)
+        ops = Bx * npoint * n * 9
+        nbytes = Bx * n * 3 * 4 + Bx * 4 + Bx * npoint * 4
+        row = dict(path=path, shape=name, B=Bx, config=list(kfps.kernel_config(n)),
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, chain_floor_ms=floor_ms,
+                   device_ms=dev_ms, floor_device_ms=floor_dev_ms,
+                   us_per_step=1e3 * dev_ms / npoint,
+                   floor_us_per_step=1e3 * floor_dev_ms / npoint, library_ms=None)
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes)
+        rows.append(row)
+        log(f"fps {path} B={Bx} {name} (threads x points {row['config']}): indices "
+            f"equal; kernel {ms:.4f} ms per call, {dev_ms:.4f} ms on the device = "
+            f"{row['us_per_step']:.4f} us a step; chain floor {floor_ms:.4f} ms per "
+            f"call, {floor_dev_ms:.4f} ms on the device = "
+            f"{row['floor_us_per_step']:.4f} us a step; plain {plain_ms:.3f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+
+    # the sweep: each thread count that holds N with its points a thread,
+    # with the two redux.sync, with the 64-bit butterfly, and the floor; on
+    # the device alone (calls queued behind a spin kernel)
+    sweep = []
+    rng = np.random.RandomState(7)
+    big = torch.from_numpy(rng.uniform(-1, 1, (B, 8192, 3)).astype(np.float32)).to(dev)
+    for xyz in (big, big[:, :4096].contiguous(), l0, big[:, :1024].contiguous(), l1):
+        n = xyz.shape[1]
+        npoint = n // 4
+        ref = kfps.fps_plain(xyz, npoint)
+        for threads, most in kfps.CONFIGS.items():
+            ppt = 1
+            while threads * ppt < n:
+                ppt *= 2
+            if ppt > most:
+                continue
+            row = dict(N=n, B=B, npoint=npoint, threads=threads, ppt=ppt,
+                       chosen=kfps.kernel_config(n) == (threads, ppt))
+            for key, redux, work in (("redux_ms", True, True),
+                                     ("butterfly_ms", False, True),
+                                     ("floor_ms", True, False)):
+                def run():
+                    return kfps.fps_unchecked(xyz, npoint, config=(threads, ppt),
+                                              redux=redux, work=work)
+                if work and not torch.equal(run(), ref):
+                    raise AssertionError(f"FPS sweep N={n} {threads}x{ppt} "
+                                         f"redux={redux}: indices differ")
+                row[key] = device_ms(torch, run)
+            sweep.append(row)
+            log(f"fps sweep N={n} B={B} npoint={npoint} {threads} threads x {ppt} "
+                f"points{' (chosen)' if row['chosen'] else ''}, on the device: redux "
+                f"{row['redux_ms']:.4f} ms = {1e3 * row['redux_ms'] / npoint:.4f} us a "
+                f"step, butterfly {row['butterfly_ms']:.4f} ms = "
+                f"{1e3 * row['butterfly_ms'] / npoint:.4f} us, floor "
+                f"{row['floor_ms']:.4f} ms = {1e3 * row['floor_ms'] / npoint:.4f} us")
+    return rows, sweep
+
+
 def fused_check(torch, kgrp, sa1, new_xyz, sq, perm, xyz_p, pts_p, k2_cat):
     """Phase 4b: the fused multi-scale kernel against its plain version and
     against the per-scale kernel's sections ``k2_cat`` -> its kernels-line
@@ -497,10 +609,12 @@ def given_draws(torch, batch, cfg, seed):
 
 
 def step_state(net):
-    """(gradients, BatchNorm buffers) of ``net`` after a step, on the CPU."""
+    """(gradients, BatchNorm buffers, parameters after the update) of
+    ``net`` after a step, on the CPU."""
     grads = {k: p.grad.detach().cpu().clone() for k, p in net.named_parameters()}
     bufs = {k: b.detach().cpu().clone() for k, b in net.named_buffers()}
-    return grads, bufs
+    params = {k: p.detach().cpu().clone() for k, p in net.named_parameters()}
+    return grads, bufs, params
 
 
 def compare_steps(torch, name, a, b, loss_rtol, cos_min, norm_tol, buf_rtol,
@@ -535,6 +649,107 @@ def compare_steps(torch, name, a, b, loss_rtol, cos_min, norm_tol, buf_rtol,
         f"diff {buf_dev:.3g} at {buf_key} (limit {buf_rtol})")
     if loss_dev > loss_rtol or bad or buf_dev > buf_rtol:
         raise AssertionError(f"{name}: out of tolerance; gradients {bad[:5]}")
+
+
+def tapped_step(torch, net, step, *args, **kwargs):
+    """One training step with the cotangent recorded at every boundary the
+    backward crosses: the output of each module of ``net``, the inputs and
+    output of ``three_nn_interpolate`` and ``attention_block``, the outputs
+    of ``apply_mano``, the vertices and output of ``collision_loss`` and the
+    triangles it scores. -> (losses, {boundary: cotangent}, boundaries in
+    the order their cotangents arrived). The taps are views with a hook:
+    they change no value."""
+    from ev2hands_tpu_torch import losses as klosses
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.model import layers as klayers
+    from ev2hands_tpu_torch.model import tehnet as ktehnet
+    from ev2hands_tpu_torch.ops import collision as kcoll
+
+    cot, order, seen = {}, [], collections.Counter()
+
+    def tap(name, x):
+        if isinstance(x, dict):
+            return {k: tap(f"{name}.{k}", v) for k, v in x.items()}
+        if type(x) is tuple:   # a layer's outputs; named tuples hold constants
+            return tuple(tap(f"{name}[{i}]", v) for i, v in enumerate(x))
+        if not (isinstance(x, torch.Tensor) and x.requires_grad):
+            return x
+        seen[name] += 1
+        key = f"{name}#{seen[name]}" if seen[name] > 1 else name
+        x = x.view_as(x)
+
+        def hook(g):
+            cot[key] = g.detach().clone()
+            order.append(key)
+        x.register_hook(hook)
+        return x
+
+    def wrap(mod, attr, label):
+        real = getattr(mod, attr)
+
+        def tapped(*a, **k):
+            a = tuple(tap(f"{label}(arg{i})", v) for i, v in enumerate(a))
+            return tap(label, real(*a, **k))
+        setattr(mod, attr, tapped)
+        return mod, attr, real
+
+    patched = [wrap(klayers, "three_nn_interpolate", "three_nn_interpolate"),
+               wrap(ktehnet, "attention_block", "attention_block"),
+               wrap(ktrain, "apply_mano", "apply_mano"),
+               wrap(klosses, "collision_loss", "collision_loss"),
+               wrap(kcoll, "penetration_penalty", "penetration_penalty")]
+    handles = [m.register_forward_hook(
+        lambda mod, a, out, name=name: tap(name or "net", out))
+        for name, m in net.named_modules()]
+    try:
+        losses = step(*args, **kwargs)
+    finally:
+        for h in handles:
+            h.remove()
+        for mod, attr, real in patched:
+            setattr(mod, attr, real)
+    return losses, cot, order
+
+
+def first_difference(torch, a, b):
+    """(boundaries in backward order whose cotangents are not bitwise equal
+    in two tapped steps, the number of boundaries); ``a`` and ``b`` are
+    ``tapped_step``'s (cotangents, order)."""
+    (ca, oa), (cb, _) = a, b
+    differ = [k for k in oa if k not in cb or not torch.equal(ca[k], cb[k])]
+    return differ, len(oa)
+
+
+def host_syncs(torch, fn, checked_fps=False):
+    """The host syncs of one call of ``fn``, counted under
+    ``torch.cuda.set_sync_debug_mode("warn")`` -> {"file:line": count} of
+    the Python lines that made them. ``checked_fps``: the model's FPS calls
+    go through the public ``fps``, which checks the start on the host."""
+    import warnings
+
+    from ev2hands_tpu_torch.model import layers as klayers
+    from ev2hands_tpu_torch.model import tehnet as ktehnet
+    from ev2hands_tpu_torch.ops import fps as kfps
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    patched = [(m, m.fps_unchecked) for m in (klayers, ktehnet)] if checked_fps else []
+    for m, _ in patched:
+        m.fps_unchecked = kfps.fps
+    torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        for m, real in patched:
+            m.fps_unchecked = real
+    return collections.Counter(
+        f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
 
 
 def device_ms(torch, fn, iters=20):
@@ -793,20 +1008,43 @@ def training_phases(torch, np, dev, state):
 
     skip = batchnorm_cancelled_biases(net)
     draws, noise = given_draws(torch, batches[0], cfg, seed=7)
-    runs = {}
+    runs, taps = {}, {}
     for key, pallas_gather in (("kernel", True), ("plain", False), ("kernel again", True)):
         net_r, step_r = build_step(route_cfg(pallas_gather), dev)
-        losses = step_r(batches[0], draws=draws, noise=noise)
+        if pallas_gather:
+            losses, *taps[key] = tapped_step(torch, net_r, step_r, batches[0],
+                                             draws=draws, noise=noise)
+        else:
+            losses = step_r(batches[0], draws=draws, noise=noise)
         runs[key] = (losses, *step_state(net_r))
         del net_r, step_r
-    # reported, not checked: other ops of the step (index_add_ in the plain
-    # ops, cuBLAS, reductions) may still add in any order
-    grads_a, grads_b = runs["kernel"][1], runs.pop("kernel again")[1]
-    differ = sorted(k for k in grads_a if not torch.equal(grads_a[k], grads_b[k]))
+    # two kernel-route steps from the same weights and draws: every loss
+    # term, gradient, BatchNorm statistic and parameter after Adam bitwise
+    # equal; where one is not, the first boundary (in backward order) whose
+    # cotangent differs names the op that added in another order
+    (la, ga, ba, pa), (lb, gb, bb, pb) = runs["kernel"], runs.pop("kernel again")
+    differ = {"loss terms": [k for k in la if la[k] != lb[k]],
+              "gradients": sorted(k for k in ga if not torch.equal(ga[k], gb[k])),
+              "BatchNorm statistics": sorted(k for k in ba if not torch.equal(ba[k], bb[k])),
+              "parameters after Adam": sorted(k for k in pa if not torch.equal(pa[k], pb[k]))}
+    boundaries, n_taps = first_difference(torch, taps["kernel"], taps["kernel again"])
+    for cot, _ in taps.values():   # held by a reference cycle of the taps' closures
+        cot.clear()
+    del taps
     log(f"kernel route, two steps from the same weights and draws: "
-        f"{len(grads_a) - len(differ)} of {len(grads_a)} gradients bitwise equal"
-        + (f"; differ: {differ[:8]}" if differ else ""))
-    runs[True], runs[False] = runs.pop("kernel"), runs.pop("plain")
+        f"{len(la) - len(differ['loss terms'])} of {len(la)} loss terms, "
+        f"{len(ga) - len(differ['gradients'])} of {len(ga)} gradients, "
+        f"{len(ba) - len(differ['BatchNorm statistics'])} of {len(ba)} BatchNorm "
+        f"statistics, {len(pa) - len(differ['parameters after Adam'])} of {len(pa)} "
+        f"parameters after Adam and {n_taps - len(boundaries)} of {n_taps} boundary "
+        f"cotangents bitwise equal")
+    if any(differ.values()) or boundaries:
+        raise AssertionError(
+            "two kernel-route steps differ: " + "; ".join(
+                f"{what} {names[:8]}" for what, names in differ.items() if names)
+            + f"; first boundaries whose cotangents differ (backward order): "
+            f"{boundaries[:8]}")
+    runs[True], runs[False] = runs.pop("kernel")[:3], runs.pop("plain")[:3]
     # The gather is an exact copy, so the forward is the same on both routes;
     # the backward sums the slot cotangents in another order (one fixed by
     # the inputs in the kernel, index_add_'s atomics on the plain route), and
@@ -824,7 +1062,7 @@ def training_phases(torch, np, dev, state):
         t0 = time.perf_counter()
         losses = step_r(two, draws=draws2, noise=noise2)
         secs = time.perf_counter() - t0
-        runs[device] = (losses, *step_state(net_r))
+        runs[device] = (losses, *step_state(net_r)[:2])
         del net_r, step_r
     log(f"card vs CPU: the CPU step (plain versions, B=2) took {secs:.1f} s")
     # f32 on both, sums in other orders (cuBLAS vs the CPU's BLAS, atomics):
@@ -856,6 +1094,20 @@ def training_phases(torch, np, dev, state):
     log(f"training: {step_ms:.3f} ms per step of {TRAIN_B} windows, "
         f"{TRAIN_B / (step_ms / 1e3):.2f} windows/s (augment, kernel route); "
         f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    # the host syncs of one step, by site; the model's FPS calls make none.
+    # With the public fps (which checks a caller's start on the host) in
+    # their place, as the model called it before, each of the step's four
+    # FPS calls adds one.
+    syncs = host_syncs(torch, one_step)
+    with_checked = host_syncs(torch, one_step, checked_fps=True)
+    log(f"training: {sum(syncs.values())} host syncs a step "
+        f"{json.dumps(dict(sorted(syncs.items())))}; with the checked fps in the "
+        f"model's place {sum(with_checked.values())}, by site "
+        f"{json.dumps(dict(sorted((with_checked - syncs).items())))} more, "
+        f"{json.dumps(dict(sorted((syncs - with_checked).items())))} fewer")
+    in_fps = [site for site in syncs if site.startswith("ev2hands_tpu_torch/ops/fps.py")]
+    if in_fps:
+        raise AssertionError(f"training: the model's FPS calls sync the host at {in_fps}")
     kernels = top_device_kernels(torch, one_step, 2)
     busy = sum(k[1] for k in kernels)
     log(f"training: device kernels {busy:.3f} ms per step = "
@@ -1069,35 +1321,12 @@ def main() -> int:
             n_out=N).events
         torch.cuda.synchronize()
 
-        # 3. FPS kernel vs plain, main-path shapes
+        # 3. FPS kernel vs plain at the serving, training and evaluation
+        # shapes; the sweep of instantiations and the chain floor
         l0 = events[..., :3].contiguous()
         l1 = index_points(l0, kfps.fps(l0, 512)).contiguous()
-        fps_rows = []
-        for name, xyz, npoint in (("sa1 2048->512", l0, 512),
-                                  ("sa2 512->128", l1, 128),
-                                  ("regressor 2048->128", l0, 128)):
-            got = kfps.fps(xyz, npoint)
-            ref = kfps.fps_plain(xyz, npoint)
-            torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            if err != 0:
-                bad = (got != ref).nonzero()[:5].tolist()
-                raise AssertionError(f"FPS {name}: indices differ at {bad}")
-            ms = cuda_ms(torch, lambda: kfps.fps(xyz, npoint), 20)
-            plain_ms = cuda_ms(torch, lambda: kfps.fps_plain(xyz, npoint), 3, 1)
-            n = xyz.shape[1]
-            # 9 f32 ops per distance update (3 sub, 3 mul, 2 add, 1 min)
-            ops = B * npoint * n * 9
-            nbytes = B * n * 3 * 4 + B * 4 + B * npoint * 4
-            row = dict(shape=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, ops=ops,
-                       bytes=nbytes, bound_ms=1e3 * max(ops / F32_FLOP_PER_S,
-                                                        nbytes / HBM_BYTES_PER_S),
-                       bound_by="operations" if ops / F32_FLOP_PER_S
-                       > nbytes / HBM_BYTES_PER_S else "bytes")
-            fps_rows.append(row)
-            log(f"fps {name}: indices equal; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
-                f"({row['bound_by']})")
+        fps_all, fps_sweep = fps_phase(torch, np, kfps, index_points, l0, l1, dev)
+        fps_rows = [r for r in fps_all if r["path"] == "serving"]
 
         # 4. grouping kernel vs plain on the sa1 scales, real preparation
         sa1 = pipe.net.sa1
@@ -1259,7 +1488,7 @@ def main() -> int:
     kernels = [
         entry("fps", "ev2hands_tpu_torch/csrc/fps.cu",
               "ev2hands_tpu/ops/pallas_ops.py:56", fps_rows,
-              max(r["max_abs_err"] for r in fps_rows)),
+              max(r["max_abs_err"] for r in fps_all)),
         entry("msg_sparse", "ev2hands_tpu_torch/csrc/msg_dense.cu",
               "ev2hands_tpu/ops/pallas_grouping.py:595", grp_rows,
               max(r["max_abs_err"] for r in grp_rows)),
@@ -1276,6 +1505,17 @@ def main() -> int:
     ] + [entry(name, "ev2hands_tpu_torch/csrc/msg_dense.cu", replaces, dense_rows[name],
                max(r["max_abs_err"] for r in dense_rows[name]))
          for name, replaces, _ in DENSE_OPS]
+    # K1's chain floor over the same pass, every shape of phase 3 and the
+    # sweep
+    kernels[0].update(
+        chain_floor_ms=sum(r["chain_floor_ms"] for r in fps_rows),
+        device_ms=sum(r["device_ms"] for r in fps_rows),
+        chain_floor_device_ms=sum(r["floor_device_ms"] for r in fps_rows),
+        by_shape=[{k: r[k] for k in ("path", "shape", "B", "config", "ms",
+                                     "device_ms", "chain_floor_ms", "floor_device_ms",
+                                     "us_per_step", "floor_us_per_step", "plain_ms",
+                                     "bound_ms")} for r in fps_all],
+        sweep=fps_sweep)
     # the gather and the scatter-add by training shape, each with the
     # launches the counted training run made at that shape
     for name, replaces, rows, library in (

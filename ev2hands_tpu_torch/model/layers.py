@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ev2hands_tpu_torch.ops.fps import fps
+from ev2hands_tpu_torch.ops.fps import fps_unchecked
 from ev2hands_tpu_torch.ops.gather import grouped_gather, pos_tile_activity
 from ev2hands_tpu_torch.ops.grouping import (
     dense_selection_mask,
@@ -149,8 +149,46 @@ class Conv1dK3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias, padding=1)
-        return y.transpose(1, 2)
+        return _ConvK3.apply(x, self.weight, self.bias)
+
+
+class _ConvK3(torch.autograd.Function):
+    """``Conv1dK3``'s convolution, x [B, N, C] -> [B, N, out], with a
+    backward whose sums run in an order fixed by the shapes.
+
+    The forward is ``F.conv1d``. The backward is written as matrix
+    products: the weight gradient is the cotangent's product with the three
+    shifted copies of x side by side, the input gradient the sum, in tap
+    order, of the cotangent's products with the three taps, shifted back.
+    cuDNN's own convolution backward picks algorithms that add with
+    atomics, in an order that changes from run to run, and makes the
+    training step irreproducible."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return F.conv1d(x.transpose(1, 2), weight, bias, padding=1).transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        B, N, C = x.shape
+        out = weight.shape[0]
+        g2 = g.reshape(B * N, out)
+        g_x = g_w = g_b = None
+        if ctx.needs_input_grad[0]:
+            # h[b, n, k] = g[b, n] @ weight[:, :, k]; x[m] feeds y[m - k + 1]
+            h = (g2 @ weight.permute(0, 2, 1).reshape(out, 3 * C)).reshape(B, N, 3, C)
+            hp = F.pad(h, (0, 0, 0, 0, 1, 1))
+            g_x = hp[:, 2:, 0] + hp[:, 1:-1, 1] + hp[:, :-2, 2]
+        if ctx.needs_input_grad[1]:
+            xp = F.pad(x, (0, 0, 1, 1))
+            cols = torch.cat([xp[:, k:k + N] for k in range(3)], dim=-1)
+            g_w = (g2.t() @ cols.reshape(B * N, 3 * C)).reshape(out, 3, C)
+            g_w = g_w.permute(0, 2, 1).contiguous()
+        if ctx.needs_input_grad[2]:
+            g_b = g2.sum(dim=0)
+        return g_x, g_w, g_b
 
 
 class SetAbstractionMsg(nn.Module):
@@ -248,12 +286,14 @@ class SetAbstractionMsg(nn.Module):
         fps_start: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``fps_idx`` [B, S] gives the centroids; otherwise FPS samples
-        them, each row from ``fps_start`` [B] (default index 0)."""
+        them, each row from ``fps_start`` [B] (default index 0), which must
+        lie in [0, N): TEHNet draws it so, and it is not checked here (a
+        check reads it back on the host)."""
         if points is None:
             raise NotImplementedError("SetAbstractionMsg without point features")
         N = xyz.shape[1]
         if fps_idx is None:
-            fps_idx = fps(xyz, self.npoint, fps_start)
+            fps_idx = fps_unchecked(xyz, self.npoint, fps_start)
         new_xyz = index_points(xyz, fps_idx)
         if self.training or self.grouping == "gather":
             if self.use_pallas_gather(N, points.shape[-1]):

@@ -33,7 +33,7 @@ from ev2hands_tpu_torch.model.layers import (
     SetAbstractionMsg,
     attention_block,
 )
-from ev2hands_tpu_torch.ops.fps import fps
+from ev2hands_tpu_torch.ops.fps import fps_unchecked
 
 # Centroids of the regressor heads' sa1; one FPS draw of this size feeds both
 # in eval.
@@ -171,7 +171,7 @@ class TEHNet(nn.Module):
         # training) or share a draw; independent draws otherwise
         reg_fps_idx = None
         if shared_head:
-            reg_fps_idx = fps(l0_xyz, REGRESSOR_NPOINT, starts[2])
+            reg_fps_idx = fps_unchecked(l0_xyz, REGRESSOR_NPOINT, starts[2])
         left = self.left_mano_regressor(l0_xyz, left_features, reg_fps_idx,
                                         starts[2], generator)
         right = self.right_mano_regressor(l0_xyz, right_features, reg_fps_idx,

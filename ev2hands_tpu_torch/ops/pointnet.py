@@ -156,9 +156,18 @@ def three_nn_interpolate(
     """Inverse-distance-weighted 3-NN interpolation of (xyz2, points2) onto
     xyz1: [B, N, C], [B, S, C], [B, S, D] -> [B, N, D].
 
-    Three argmin passes with first-minimum tie-break, eps 1e-8. The weighted
-    sum gathers the three neighbors' rows directly (the JAX package built a
-    dense one-hot weight matrix for the TPU's matrix unit)."""
+    The weighted sum gathers the three neighbors' rows directly (the JAX
+    package built a dense one-hot weight matrix for the TPU's matrix unit);
+    its backward is ``_Interpolate3``'s."""
+    return _Interpolate3.apply(points2, *three_nn(xyz1, xyz2))
+
+
+def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The three nearest points of xyz2 [B, S, C] to each of xyz1 [B, N, C]
+    and their inverse-distance weights -> (idx [B, N, 3] int64, weight
+    [B, N, 3]): three argmin passes with first-minimum tie-break, eps
+    1e-8."""
     d = square_distance(xyz1, xyz2)  # [B, N, S]
     S = xyz2.shape[1]
     ar = torch.arange(S, device=d.device)
@@ -171,7 +180,40 @@ def three_nn_interpolate(
     d3 = torch.stack(ds, -1)  # [B, N, 3]
     recip = 1.0 / (d3 + 1e-8)
     weight = recip / torch.sum(recip, dim=-1, keepdim=True)
-    out = weight[..., 0:1] * index_points(points2, idxs[0])
-    for j in (1, 2):
-        out = out + weight[..., j:j + 1] * index_points(points2, idxs[j])
-    return out
+    return torch.stack(idxs, -1), weight
+
+
+class _Interpolate3(torch.autograd.Function):
+    """``sum_j weight[..., j] * points2[idx[..., j]]``, points2 [B, S, D],
+    idx and weight [B, N, 3] -> [B, N, D], with a backward whose sums run
+    in an order fixed by the shapes.
+
+    The forward gathers the three rows. The gradient of ``points2`` is the
+    product of the transposed dense weight matrix W [B, N, S] (the JAX
+    package's formulation, ``W = sum_j weight_j * onehot(idx_j)``) with the
+    cotangent: one batched matrix product. A gather's own backward adds
+    each source row's contributions with atomics, in an order that changes
+    from run to run on CUDA, and makes the training step irreproducible."""
+
+    @staticmethod
+    def forward(ctx, points2, idx, weight):
+        ctx.save_for_backward(points2, idx, weight)
+        out = weight[..., 0:1] * index_points(points2, idx[..., 0])
+        for j in (1, 2):
+            out = out + weight[..., j:j + 1] * index_points(points2, idx[..., j])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        points2, idx, weight = ctx.saved_tensors
+        g_points = g_weight = None
+        if ctx.needs_input_grad[0]:
+            ar = torch.arange(points2.shape[1], device=idx.device)
+            W = weight[..., 0:1] * (ar == idx[..., 0:1])
+            for j in (1, 2):
+                W = W + weight[..., j:j + 1] * (ar == idx[..., j:j + 1])
+            g_points = W.transpose(1, 2) @ g
+        if ctx.needs_input_grad[2]:
+            g_weight = torch.stack([(g * index_points(points2, idx[..., j])).sum(-1)
+                                    for j in range(3)], dim=-1)
+        return g_points, None, g_weight

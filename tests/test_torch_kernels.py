@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port's CUDA kernels against their plain versions on the card, and
+the training step's bits run to run.
 
 Marked ``cuda``: without a CUDA device every test skips. On the H100 run
 ``python -m pytest tests/test_torch_kernels.py`` (the first call builds the
@@ -10,7 +11,9 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from ev2hands_tpu_torch.model import layers as tl
 from ev2hands_tpu_torch.ops import fps as tf
 from ev2hands_tpu_torch.ops import gather as tga
 from ev2hands_tpu_torch.ops import grouping as tg
@@ -35,19 +38,53 @@ def _cloud(rng, B, N, n_base):
     return torch.from_numpy(np.take_along_axis(base, idx[..., None], axis=1))
 
 
-@pytest.mark.parametrize("N,npoint", [(2048, 512), (2048, 128), (512, 128),
-                                      (300, 400)])
-def test_fps_kernel_matches_plain(cuda, N, npoint):
-    rng = np.random.RandomState(N + npoint)
-    B = 5
-    xyz = _cloud(rng, B, N, max(8, N * 3 // 4)).to(cuda)
-    start = torch.from_numpy(rng.randint(0, N, B).astype(np.int32)).to(cuda)
+FPS_SHAPES = [(2048, 512), (2048, 128), (512, 128), (300, 400), (33, 40),
+              (8192, 512)]
+
+
+@pytest.mark.parametrize("B", [1, 8, 16, 32])
+@pytest.mark.parametrize("N,npoint", FPS_SHAPES)
+@pytest.mark.parametrize("distinct", ["most", "five"])
+def test_fps_kernel_matches_plain(cuda, N, npoint, B, distinct):
+    """Bitwise-equal indices at the serving, training and evaluation batch
+    sizes, N from 33 to the kernel's 8192, npoint above N, random starts
+    with the last row's at N - 1, on clouds drawn with replacement from 3/4
+    N distinct points or from five (ties everywhere after five steps)."""
+    rng = np.random.RandomState(N + npoint + B)
+    xyz = _cloud(rng, B, N, max(8, N * 3 // 4) if distinct == "most" else 5).to(cuda)
+    start = rng.randint(0, N, B).astype(np.int32)
+    start[-1] = N - 1
+    start = torch.from_numpy(start).to(cuda)
     launches = tf.fps.launches
     got = tf.fps(xyz, npoint, start)
     torch.cuda.synchronize()
     assert tf.fps.launches == launches + 1
     ref = tf.fps_plain(xyz, npoint, start)
     assert torch.equal(got, ref)
+    assert torch.equal(tf.fps_unchecked(xyz, npoint, start), ref)
+
+
+@pytest.mark.parametrize("N", [2048, 512, 300])
+def test_fps_kernel_every_instantiation_matches_plain(cuda, N):
+    """Every built (threads, points a thread) that holds N, with the two
+    redux.sync and with the 64-bit butterfly: the same indices."""
+    rng = np.random.RandomState(N)
+    B, npoint = 4, 160
+    xyz = _cloud(rng, B, N, N * 3 // 4).to(cuda)
+    start = torch.from_numpy(rng.randint(0, N, B).astype(np.int32)).to(cuda)
+    ref = tf.fps_plain(xyz, npoint, start)
+    tried = 0
+    for threads, most in tf.CONFIGS.items():
+        ppt = 1
+        while ppt <= most:
+            if threads * ppt >= N:
+                for redux in (True, False):
+                    got = tf.fps_unchecked(xyz, npoint, start, config=(threads, ppt),
+                                           redux=redux)
+                    assert torch.equal(got, ref), (threads, ppt, redux)
+                    tried += 1
+            ppt *= 2
+    assert tried >= 8
 
 
 def _folded(rng, B, S, N, widths, device):
@@ -420,3 +457,133 @@ def test_msg_dense_wrappers_reject_what_they_cannot_take(cuda):
         tg.dense_msg_scale(xyz[..., :2], new_xyz, folded, 0.2, 8, sb=8)
     with pytest.raises(ValueError):   # centroids on the CPU
         tg.fused_msg_scale(xyz, new_xyz.cpu(), folded, 0.2, 8)
+
+
+# --- the training step's bits run to run ------------------------------------
+# The backwards of three_nn_interpolate (ops/pointnet._Interpolate3) and of
+# the query heads' convolution (model/layers._ConvK3) sum in an order fixed
+# by their inputs; tests/test_torch_determinism.py holds them to autograd
+# and to JAX on the CPU.
+
+def _gather_interpolate(points2, idx, weight):
+    """three_nn_interpolate's weighted sum with torch.gather's own
+    backward."""
+    out = weight[..., 0:1] * tp.index_points(points2, idx[..., 0])
+    for j in (1, 2):
+        out = out + weight[..., j:j + 1] * tp.index_points(points2, idx[..., j])
+    return out
+
+
+def _twice(fn):
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    return a, b
+
+
+def test_step_backwards_deterministic(cuda):
+    """At fp1's and the query heads' training shapes (B=8, N=2048): each
+    backward twice gives the same bits, and stays within float32 rounding
+    (1e-5 of the largest element) of the autograd backward it replaces."""
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x1 = torch.rand(8, 2048, 3, device=cuda, generator=gen)
+    x2 = torch.rand(8, 512, 3, device=cuda, generator=gen)
+    p2 = torch.randn(8, 512, 128, device=cuda, generator=gen)
+    g = torch.randn(8, 2048, 128, device=cuda, generator=gen)
+
+    def interp():
+        leaf = p2.clone().requires_grad_(True)
+        tp.three_nn_interpolate(x1, x2, leaf).backward(g)
+        return leaf.grad
+
+    a, b = _twice(interp)
+    assert torch.equal(a, b)
+    leaf = p2.clone().requires_grad_(True)
+    _gather_interpolate(leaf, *tp.three_nn(x1, x2)).backward(g)
+    assert (a - leaf.grad).abs().max() <= 1e-5 * leaf.grad.abs().max()
+
+    conv = tl.Conv1dK3(256, 256, device=cuda)
+    with torch.no_grad():
+        conv.weight.normal_(0.0, 256 ** -0.5, generator=gen)
+        conv.bias.normal_(0.0, 0.1, generator=gen)
+    x = torch.randn(8, 2048, 256, device=cuda, generator=gen)
+    gy = torch.randn(8, 2048, 256, device=cuda, generator=gen)
+
+    def conv_grads():
+        leaf = x.clone().requires_grad_(True)
+        conv.zero_grad(set_to_none=True)
+        conv(leaf).backward(gy)
+        return torch.cat([leaf.grad.ravel(), conv.weight.grad.ravel(),
+                          conv.bias.grad.ravel()])
+
+    a, b = _twice(conv_grads)
+    assert torch.equal(a, b)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, conv.weight, conv.bias)]
+    F.conv1d(leaves[0].transpose(1, 2), leaves[1], leaves[2],
+             padding=1).transpose(1, 2).backward(gy)
+    want = torch.cat([t.grad.ravel() for t in leaves])
+    n = x.numel()
+    for sl in (slice(0, n), slice(n, -256), slice(-256, None)):
+        assert (a[sl] - want[sl]).abs().max() <= 1e-5 * want[sl].abs().max()
+
+
+def _train_batch(rng, B, N, width=346, height=260):
+    """Raw windows and MANO ground truth like the JAX package's synthetic
+    training batches."""
+    def hand():
+        return {k: (rng.randn(B, n) * 0.1).astype(np.float32)
+                for k, n in (("global_orient", 3), ("hand_pose", 45),
+                             ("shape", 10), ("trans", 3))} | {
+            "valid": np.ones(B, np.float32)}
+
+    t = np.sort(rng.randint(0, int(5e6), (B, N))).astype(np.float32)
+    events = np.stack([rng.randint(0, width, (B, N)).astype(np.float32),
+                       rng.randint(0, height, (B, N)).astype(np.float32), t,
+                       rng.randint(0, 2, (B, N)).astype(np.float32)], axis=-1)
+    return {"events": events, "labels": rng.randint(0, 4, (B, N)).astype(np.int32),
+            "left": hand(), "right": hand(),
+            "handedness": np.ones((B, 2), np.int32)}
+
+
+def test_two_training_steps_bitwise_equal(cuda):
+    """Two kernel-route training steps (make_train_step at full TEHNet
+    width, B=2, N=2048, the one-hot gather and its scatter-add kernels)
+    from the same weights and draws: every loss term, gradient, parameter
+    after Adam and BatchNorm statistic bitwise equal."""
+    from ev2hands_tpu_torch import train as ttr
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.events.erpc import noise_draws, rasterize_erpc, resample_draws
+    from ev2hands_tpu_torch.model.tehnet import TEHNet
+    from ev2hands_tpu_torch.weights import init_weights
+
+    B, N = 2, 2048
+    cfg = DEFAULT_CONFIG.replace(model=ModelConfig(
+        n_points=N, fps_deterministic=True, pallas_gather=True,
+        pallas_gather_bwd=True, dropout_classifier=0.0, dropout_query=0.0,
+        dropout_regressor=0.0))
+    state = init_weights(torch.Generator().manual_seed(0), cfg.model)
+    hands = ttr.build_hands(cfg, device=cuda)
+    ctx = ttr.build_collision_context(hands)
+    batch = _train_batch(np.random.RandomState(3), B, N)
+    s = cfg.sensor
+    _, _, n_valid = rasterize_erpc(torch.from_numpy(batch["events"]),
+                                   torch.from_numpy(batch["labels"]), s.width, s.height)
+    g = torch.Generator().manual_seed(4)
+    noise = noise_draws(n_valid, N // 32, s.width, s.height, g)
+    total = n_valid + torch.where(noise.gate, N // 32, 0).to(n_valid.dtype)
+    draws = resample_draws(total, N, g)
+
+    def run():
+        net = TEHNet(cfg.model, device=cuda)
+        net.load_state_dict(state, strict=True)
+        opt = ttr.make_optimizer(net.parameters(), cfg.train)
+        step = ttr.make_train_step(net, hands, ctx, cfg, opt, device=cuda)
+        losses = step(batch, draws=draws, noise=noise)
+        return (losses, {k: p.grad.clone() for k, p in net.named_parameters()},
+                {k: v.clone() for k, v in net.state_dict().items()})
+
+    (la, ga, sa), (lb, gb, sb) = _twice(run)
+    assert la == lb
+    assert la["loss_interpen"] > 0
+    assert [k for k in ga if not torch.equal(ga[k], gb[k])] == []
+    assert [k for k in sa if not torch.equal(sa[k], sb[k])] == []
