@@ -7,7 +7,8 @@ Phases (any failed check raises, so the script exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the port from ev2hands_tpu_torch/csrc with nvcc
      for sm_90a, one process per source, timed, and print each kernel
-     function's registers, stack frame and spill bytes from ptxas;
+     function's registers, stack frame and spill bytes from ptxas; then the
+     host batch loader (csrc/ev2hands_loader.cpp) with g++;
   3. the FPS kernel against its plain version on ERPC clouds at its three
      shapes (2048->512, 512->128, 2048->128) at the serving batch (B=16),
      the training batch (B=8, random starts) and the evaluation batch
@@ -97,10 +98,32 @@ Phases (any failed check raises, so the script exits non-zero):
      launch counts a batch, a non-collision score in [0, 100], a finite
      MPJPE, the end-to-end windows/s and the shares of the wall time spent
      in host windowing and in the collision score;
- 14. a `kernels` JSON line (times from CUDA events, bounds from this run's
+ 14. the training loop: train() at full TEHNet width (B=8, N=2048, the
+     kernel route of phase 8, warm-started from the seeded weights) on
+     synthetic Ev2Hands-S rows held in memory through the native loader,
+     which must be the source used; 6 steps with an evaluation of 2 batches
+     at B=32 every 3 steps, with exactly 4 FPS, 4 gather and 3 scatter-add
+     launches a step and 3 FPS and 3 grouping launches an evaluation
+     batch, finite losses and a checkpoint at step 3; a fresh model and
+     Adam restored from that checkpoint take steps 3-5 with the loop's
+     batches and draws to the loop's bits (every model tensor and Adam
+     state tensor); the loop's windows/s and the shares of its wall time
+     spent waiting on the loader, evaluating and saving; the native
+     loader's host time a batch beside the Python reader's;
+ 15. finetuning: finetune() on a synthetic Ev2Hands-R recording in a
+     temporary directory (B=8, 4 steps, an evaluation of 2 batches at B=8
+     every 2 steps, warm-started from the seeded weights) with the same
+     launch counts a step and an evaluation batch, finite losses,
+     windows/s and shares; then one finetuning step on the card against
+     the port on the CPU at B=2 with the same weights and resample draws
+     (deterministic FPS, no dropout), the regressors' translation bias
+     raised by 0.4 m in z so that the 2-D term's projection is not at the
+     camera centre: every loss term within 1e-4 relative (at the seeded
+     weights, where depths near 0 amplify rounding, the pair is logged);
+ 16. a `kernels` JSON line (times from CUDA events, bounds from this run's
      inputs), the gather and scatter-add also by training shape, FPS with
      its chain floor, every phase-3 shape and the sweep;
- 15. last line: {"ok": true, "device": {...}}.
+ 17. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result without a CUDA device, or without the
 repository's package beside it.
@@ -126,6 +149,12 @@ TRAIN_STEPS = 4
 EVAL_B = 32
 EVAL_BATCHES = 8
 REAL_WINDOWS = 96
+# the training loop (phase 14) and finetuning (phase 15): steps, the
+# evaluation interval, the evaluation's frames and batch
+LOOP_STEPS, LOOP_SAVE_ITER, LOOP_EVAL_FRAMES = 6, 3, 64
+FT_STEPS, FT_SAVE_ITER, FT_EVAL_FRAMES, FT_EVAL_B = 4, 2, 16, 8
+TRAIN_PER_STEP = {"fps": 4, "onehot_gather": 4, "onehot_scatter_add": 3}
+EVAL_PER_BATCH = {"fps": 3, "msg_sparse": 3}
 # the one-hot gathers of a training step, in call order
 GATHER_LAYERS = ("sa1", "sa2", "left regressor sa1", "right regressor sa1")
 # the dense grouping ops: wrapper, the JAX function it ports, takes a mask
@@ -1256,6 +1285,244 @@ def evaluation_phases(torch, np, dev, state):
                              f"{real['non_collision_pct']}")
     return {k: launches[k] + real_launches[k] for k in launches}
 
+def loop_config(eval_b, **train):
+    """The loops' configuration: full TEHNet width, the kernel route of the
+    training step (one-hot gather and its scatter-add), the default
+    (per-scale) evaluation grouping."""
+    import dataclasses
+
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+
+    return DEFAULT_CONFIG.replace(
+        model=ModelConfig(n_points=N, pallas_gather=True, pallas_gather_bwd=True),
+        train=dataclasses.replace(DEFAULT_CONFIG.train, batch_size=TRAIN_B,
+                                  eval_batch_size=eval_b, msg_iter=1, **train))
+
+
+def loop_shares(name, stats, wall_s):
+    """Log a loop's windows/s and where its wall time went -> the numbers."""
+    work_s = stats.wall_s - stats.eval_s - stats.save_s
+    out = {
+        "steps": stats.steps, "batch": TRAIN_B, "wall_s": wall_s,
+        "loop_s": stats.wall_s,
+        "windows_per_s": stats.steps * TRAIN_B / work_s,
+        "windows_per_s_end_to_end": stats.steps * TRAIN_B / wall_s,
+        "loader_wait_share": stats.loader_wait_s / stats.wall_s,
+        "eval_share": stats.eval_s / stats.wall_s,
+        "save_share": stats.save_s / stats.wall_s,
+        "evals": stats.evals, "saves": stats.saves,
+    }
+    log(f"{name}: {stats.steps} steps of {TRAIN_B} windows in {stats.wall_s:.3f} s "
+        f"({wall_s:.3f} s with set-up); {out['windows_per_s']:.2f} windows/s over the "
+        f"steps (host loader, prefetch and logging included), "
+        f"{out['windows_per_s_end_to_end']:.2f} windows/s end to end; shares of the "
+        f"loop's wall time: waiting on the loader {100 * out['loader_wait_share']:.2f}%, "
+        f"evaluation {100 * out['eval_share']:.2f}% ({stats.evals}), checkpoint save "
+        f"{100 * out['save_share']:.2f}% ({stats.saves})")
+    return out
+
+
+def expect_launches(what, launches, steps, eval_batches):
+    want = {k: TRAIN_PER_STEP.get(k, 0) * steps + EVAL_PER_BATCH.get(k, 0) * eval_batches
+            for k in launches}
+    for k, n in launches.items():
+        if n != want[k]:
+            raise AssertionError(f"{what}: {k} launched {n} times, want {want[k]} "
+                                 f"({steps} steps, {eval_batches} evaluation batches)")
+
+
+def training_loop_phase(torch, np, dev, state):
+    """Phase 14: the training loop (train) on synthetic rows in memory
+    through the native loader, warm-started from the seeded weights,
+    counted; a step-level resume from its step-3 checkpoint bitwise equal
+    to its step 6; windows/s and shares; the native loader's host time a
+    batch beside the Python reader's. -> launches."""
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.checkpoint import Checkpointer
+    from ev2hands_tpu_torch.events.native_loader import NativeEv2HandSLoader
+    from ev2hands_tpu_torch.events.streams import Ev2HandSReader, synthetic_ev2hands_s
+    from ev2hands_tpu_torch.model.tehnet import TEHNet
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        pth = os.path.join(tmp, "seeded.pth")
+        torch.save(state, pth)
+        cfg = loop_config(EVAL_B, save_iter=LOOP_SAVE_ITER,
+                          max_eval_iters=LOOP_EVAL_FRAMES, checkpoint_path=pth)
+        rows = synthetic_ev2hands_s(n_events=65536, n_frames=16, seed=0)
+        val = synthetic_ev2hands_s(n_events=65536, n_frames=16, seed=1)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = ktrain.train(cfg, synthetic_mano=True, max_iter=LOOP_STEPS, device=dev,
+                           train_data=rows, val_data=val, base_dir=tmp)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        log(f"training loop: launches {launches}; last step's losses "
+            + json.dumps(run.stats.losses))
+        if run.source != "native":
+            raise AssertionError(f"training loop: the batches came from {run.source}, "
+                                 "not the native loader")
+        eval_batches = (LOOP_STEPS // LOOP_SAVE_ITER) * (LOOP_EVAL_FRAMES // EVAL_B)
+        expect_launches("training loop", launches, LOOP_STEPS, eval_batches)
+        if run.step != LOOP_STEPS or run.stats.evals != LOOP_STEPS // LOOP_SAVE_ITER \
+                or not all(np.isfinite(v) for v in run.stats.losses.values()):
+            raise AssertionError(f"training loop: step {run.step}, "
+                                 f"{run.stats.evals} evaluations, losses {run.stats.losses}")
+        ckpt = os.path.join(run.run_dir, "ckpt")
+        saved = sorted(os.listdir(ckpt))
+        log(f"training loop: checkpoints {saved}; best score {run.max_eval_score}")
+        if f"step_{LOOP_SAVE_ITER:09d}.pt" not in saved:
+            raise AssertionError(f"training loop: no checkpoint at step {LOOP_SAVE_ITER}")
+        shares = loop_shares("training loop", run.stats, wall_s)
+
+        # the step-level resume: a fresh model and Adam restored from the
+        # step-3 checkpoint take steps 3-5 with the loop's batches (the
+        # native loader's fill_random) and draws
+        net = TEHNet(cfg.model, device=dev)
+        opt = ktrain.make_optimizer(net.parameters(), cfg.train)
+        Checkpointer(ckpt).restore_into(net, opt, step=LOOP_SAVE_ITER)
+        hands = ktrain.build_hands(cfg, device=dev)
+        step = ktrain.make_train_step(net, hands, ktrain.build_collision_context(hands),
+                                      cfg, opt, device=dev)
+        loader = NativeEv2HandSLoader.from_rows(*rows, N, n_threads=1,
+                                                seed=cfg.train.seed)
+        for it in range(LOOP_SAVE_ITER, LOOP_STEPS):
+            step(loader.fill_batch(TRAIN_B, step=it),
+                 ktrain.seeded_generator(cfg.train.seed + 1, it, dev))
+        torch.cuda.synchronize()
+        a, b = net.state_dict(), run.net.state_dict()
+        sa, sb = opt.state_dict()["state"], run.optimizer.state_dict()["state"]
+        differ = [k for k in a if not torch.equal(a[k], b[k])] + [
+            f"adam {i}.{k}" for i in sa for k in sa[i] if not torch.equal(sa[i][k], sb[i][k])]
+        log(f"training loop: resumed from step {LOOP_SAVE_ITER} to {LOOP_STEPS}: "
+            f"{len(a) - len([d for d in differ if not d.startswith('adam')])} of {len(a)} "
+            f"model tensors and {sum(len(v) for v in sa.values())} Adam state tensors "
+            f"checked, {len(differ)} differ")
+        if differ:
+            raise AssertionError(f"training loop: the resumed run differs at {differ[:8]}")
+        del net, opt, step, run
+
+        # the native loader's host time a batch (one thread, as the loop
+        # runs it, and a pool of every hardware thread) beside the Python
+        # reader's
+        pool = NativeEv2HandSLoader.from_rows(*rows, N, n_threads=0, seed=cfg.train.seed)
+        reader = Ev2HandSReader.from_rows(*rows, N)
+        batches = reader.batches(TRAIN_B, shuffle=True)
+        host = {}
+        for name, fn in (("native", lambda i: loader.fill_batch(TRAIN_B, step=i)),
+                         ("native_pool", lambda i: pool.fill_batch(TRAIN_B, step=i)),
+                         ("python", lambda i: next(batches))):
+            fn(0)
+            t0 = time.perf_counter()
+            for i in range(20):
+                fn(i)
+            host[name] = 1e3 * (time.perf_counter() - t0) / 20
+        log(f"training loop: host ms a batch of {TRAIN_B} x {N} events: native loader "
+            f"{host['native']:.3f} (one thread), {host['native_pool']:.3f} (a pool of "
+            f"{os.cpu_count()} hardware threads), Python reader {host['python']:.3f}")
+        shares["host_ms_per_batch"] = host
+        log("training loop numbers: " + json.dumps(shares))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def finetune_phase(torch, np, dev, state):
+    """Phase 15: finetuning (finetune) on a synthetic Ev2Hands-R recording
+    in a temporary directory, warm-started from the seeded weights,
+    counted, finite losses, windows/s; then one finetuning step on the card
+    against the port on the CPU at B=2 with the same weights and draws,
+    with the hands at the recording's depth.
+    -> launches."""
+    import dataclasses
+
+    from ev2hands_tpu_torch import finetune as kft
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.events.erpc import rasterize_erpc, resample_draws
+    from ev2hands_tpu_torch.events.real_streams import (
+        Ev2HandRReader,
+        write_synthetic_ev2hands_r,
+    )
+    from ev2hands_tpu_torch.model.tehnet import TEHNet
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_finetune_")
+    try:
+        pth = os.path.join(tmp, "seeded.pth")
+        torch.save(state, pth)
+        rec = os.path.join(tmp, "recordings")
+        write_synthetic_ev2hands_r(os.path.join(rec, "subject.pickle"))
+        cfg = loop_config(FT_EVAL_B)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = kft.finetune(cfg, rec, pth, max_iter=FT_STEPS, save_iter=FT_SAVE_ITER,
+                           synthetic_mano=True, max_eval_iters=FT_EVAL_FRAMES,
+                           device=dev, base_dir=tmp)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        log(f"finetune: launches {launches}; last step's losses "
+            + json.dumps(run.stats.losses))
+        eval_batches = (FT_STEPS // FT_SAVE_ITER) * (FT_EVAL_FRAMES // FT_EVAL_B)
+        expect_launches("finetune", launches, FT_STEPS, eval_batches)
+        if run.step != FT_STEPS or not all(np.isfinite(v)
+                                           for v in run.stats.losses.values()):
+            raise AssertionError(f"finetune: step {run.step}, losses {run.stats.losses}")
+        numbers = loop_shares("finetune", run.stats, wall_s)
+        log("finetune numbers: " + json.dumps(numbers))
+        del run
+
+        # one step on the card against the CPU: deterministic FPS, no
+        # dropout, the resample draws given
+        c = cfg.replace(model=dataclasses.replace(
+            cfg.model, fps_deterministic=True, dropout_classifier=0.0,
+            dropout_query=0.0, dropout_regressor=0.0))
+        batch = next(Ev2HandRReader(rec, seed=4).batches(2))
+        _, _, n_valid = rasterize_erpc(
+            torch.from_numpy(batch["events"]), torch.zeros(batch["events"].shape[:2],
+                                                           dtype=torch.int32),
+            c.sensor.width, c.sensor.height, time_scale=1.0,
+            event_valid=torch.from_numpy(batch["event_valid"]),
+            max_pixels=min(batch["events"].shape[1], max(2 * N, 2048)))
+        draws = resample_draws(n_valid, N, torch.Generator().manual_seed(9))
+        # The seeded weights regress translations near 0, so the predicted
+        # joints sit at the camera's centre, where the 2-D term divides by
+        # depths near 0 and amplifies rounding without bound: that pair is
+        # logged. The gate holds the pair whose regressors put the hands at
+        # the recording's depth, 0.4 m (the transl bias's z raised by 0.4).
+        at_depth = dict(state)
+        for side in ("left", "right"):
+            key = f"{side}_mano_regressor.mano_regressor.4.bias"
+            at_depth[key] = state[key].clone()
+            at_depth[key][-1] += 0.4
+        for name, weights, gate in (("seeded weights", state, False),
+                                    ("hands at 0.4 m", at_depth, True)):
+            losses = {}
+            for device in (dev, "cpu"):
+                net = TEHNet(c.model, device=device)
+                net.load_state_dict(weights, strict=True)
+                hands = ktrain.build_hands(c, device=device)
+                step = kft.make_finetune_step(
+                    net, hands, ktrain.build_collision_context(hands), c,
+                    ktrain.make_optimizer(net.parameters(), c.train),
+                    c.camera.projection_matrix(c.sensor.width, c.sensor.height), device)
+                t0 = time.perf_counter()
+                losses[str(device)] = step(batch, draws=draws)
+                log(f"finetune step on {device}, {name} (B=2, given draws) in "
+                    f"{time.perf_counter() - t0:.2f} s: " + json.dumps(losses[str(device)]))
+            card, cpu = losses[str(dev)], losses["cpu"]
+            worst = max((abs(card[k] - v) / max(abs(v), 1e-30), k) for k, v in cpu.items())
+            log(f"finetune card vs CPU, {name}: loss terms max rel diff {worst[0]:.3g} "
+                f"at {worst[1]}" + (" (limit 1e-4)" if gate else " (logged, no gate)"))
+            if gate and not worst[0] <= 1e-4:
+                raise AssertionError(f"finetune card vs CPU, {name}: {worst[1]} "
+                                     f"differs by {worst[0]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
 
 def main() -> int:
     import torch
@@ -1300,6 +1567,10 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"build: {', '.join(f'csrc/{k}.cu' for k in _build.KERNELS)} -> sm_90a "
         f"in {build_s:.1f} s")
+    t0 = time.perf_counter()
+    _build.load_host("ev2hands_loader")
+    log(f"build: csrc/ev2hands_loader.cpp (the host batch loader) -> g++ in "
+        f"{time.perf_counter() - t0:.1f} s")
     ptxas_report(_build.build_logs, _build.nvcc_path())
 
     cfg = DEFAULT_CONFIG.replace(model=ModelConfig(n_points=N))
@@ -1460,16 +1731,22 @@ def main() -> int:
     # 12-13. evaluation
     eval_launches = evaluation_phases(torch, np, dev, state)
 
-    # 14. the kernels line. ms, plain_ms, bound_ms and library_ms add the
+    # 14-15. the training loop and finetuning
+    loop_launches = training_loop_phase(torch, np, dev, state)
+    ft_launches = finetune_phase(torch, np, dev, state)
+
+    # 16. the kernels line. ms, plain_ms, bound_ms and library_ms add the
     # calls of one pass: the three serving FPS shapes and sa1 scales of a
     # forward, the fused sa1 call of an evaluation forward, the four gathers
     # and three scatter-adds of a training step, a dense op's three sa1
     # scales; then one entry per training shape of the gather and the
     # scatter-add. launches: every driven path (serving's 4 requests, training's
-    # 4 steps, the evaluations' 8 + 3 batches, phase 4c's ops), also listed
-    # by path.
+    # 4 steps, the evaluations' 8 + 3 batches, phase 4c's ops, the training
+    # loop's 6 steps and 4 evaluation batches, finetuning's 4 steps and 4
+    # evaluation batches), also listed by path.
     by_path = {"serving": launches, "training": train_launches,
-               "evaluation": eval_launches, "ops": ops_launches}
+               "evaluation": eval_launches, "ops": ops_launches,
+               "training_loop": loop_launches, "finetune": ft_launches}
 
     def entry(name, source, replaces, rows, err, library=False):
         return {

@@ -1,14 +1,34 @@
-"""Host-side camera helpers of the real-data path, in numpy.
+"""Camera helpers of the real-data path.
 
-Counterpart of ``undistort_points`` in ``ev2hands_tpu/camera.py``, without
-OpenCV: the port writes out ``cv2.undistortPoints``' fixed-point iteration
-for the k1 k2 p1 p2 k3 distortion model, then reprojects through the camera
-matrix and clips to the sensor as the JAX package does.
+Counterparts of ``ev2hands_tpu/camera.py``:
+  * ``opengl_projection_transform`` (torch), the projection of the 2-D
+    reprojection loss of finetuning;
+  * ``undistort_points`` (numpy, on the host), without OpenCV: the port
+    writes out ``cv2.undistortPoints``' fixed-point iteration for the k1 k2
+    p1 p2 k3 distortion model, then reprojects through the camera matrix and
+    clips to the sensor as the JAX package does.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+def opengl_projection_transform(
+    projection_matrix: torch.Tensor,   # [4, 4]
+    width: int,
+    height: int,
+    points: torch.Tensor,              # [..., 3] camera space
+) -> torch.Tensor:
+    """Camera-space points -> [..., 2] pixel coordinates through an OpenGL
+    projection matrix: the homogeneous divide, then ``(1 - ndc) * 0.5 *
+    (W, H)``."""
+    h = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+    h = torch.einsum("ij,...j->...i", projection_matrix.to(points.dtype), h)
+    h = h / h[..., -1:]
+    h = (1.0 - h) * 0.5
+    return torch.stack([h[..., 0] * width, h[..., 1] * height], dim=-1)
+
 
 # cv2.undistortPoints without a criteria argument: a COUNT criterion of 5
 # iterations.

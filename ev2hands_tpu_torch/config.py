@@ -1,11 +1,12 @@
 """Configuration of the PyTorch port: the fields of ``ev2hands_tpu.config``
-that the inference, training and evaluation slices read, copied so that the port
-imports nothing of the JAX package. Field names and defaults are the JAX
-package's."""
+that the inference, training, finetuning and evaluation paths read, copied
+so that the port imports nothing of the JAX package. Field names and
+defaults are the JAX package's."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 
@@ -98,15 +99,50 @@ class LossConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training and evaluation hyperparameters read by the training step
-    and the evaluation entry points."""
+    """Training-loop, finetuning and evaluation hyperparameters."""
 
     batch_size: int = 8
     learning_rate: float = 1e-3
     weight_decay: float = 0.0
+    max_iter: int = 800_000
+    save_iter: int = 10_000
+    msg_iter: int = 50
+    max_eval_iters: int = 8192
     eval_batch_size: int = 32
     seed: int = 0
+    checkpoint_path: str = ""
     data_root: str = "data/Ev2Hands-S"
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraConfig:
+    """The rendering camera of the 2-D reprojection loss: a perspective
+    projection with a 30 degree vertical field of view at the sensor's
+    aspect ratio."""
+
+    yfov_deg: float = 30.0
+    znear: float = 0.05
+    zfar: Optional[float] = None
+
+    def projection_matrix(self, width: int, height: int):
+        """[4, 4] float64 OpenGL projection matrix
+        (``pyrender.PerspectiveCamera.get_projection_matrix``'s)."""
+        import numpy as np
+
+        aspect = width / height
+        t = 1.0 / math.tan(math.radians(self.yfov_deg) / 2.0)
+        p = np.zeros((4, 4), dtype=np.float64)
+        p[0, 0] = t / aspect
+        p[1, 1] = t
+        p[3, 2] = -1.0
+        if self.zfar is None:
+            p[2, 2] = -1.0
+            p[2, 3] = -2.0 * self.znear
+        else:
+            n, f = self.znear, self.zfar
+            p[2, 2] = (f + n) / (n - f)
+            p[2, 3] = (2 * f * n) / (n - f)
+        return p
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +152,7 @@ class Config:
     model: ModelConfig = ModelConfig()
     loss: LossConfig = LossConfig()
     train: TrainConfig = TrainConfig()
+    camera: CameraConfig = CameraConfig()
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -4,9 +4,10 @@ Counterpart of ``ev2hands_tpu/evaluate.py``: raw windows from an
 ``Ev2HandSReader`` -> ``erpc_batch_transform`` -> ``TEHNet`` eval -> MANO,
 held against the ground truth that the annotations' MANO parameters give.
 It runs on the card unless asked for the CPU, in the fused grouping
-configuration (``EVAL_CONFIG``: ``pallas_fused_msg=True``). The port reads the
-reference's ``.pth`` checkpoints (``weights.load_pth_state_dict``); native
-JAX (orbax) checkpoints need orbax and are not read.
+configuration (``EVAL_CONFIG``: ``pallas_fused_msg=True``). It reads the
+reference's ``.pth`` checkpoints and the port's own checkpoint directories
+(``checkpoint.load_model_state``); native JAX (orbax) checkpoints need orbax
+and are not read.
 
     python -m ev2hands_tpu_torch.evaluate --checkpoint_path best.pth \\
         --data_root data/Ev2Hands-S --synthetic_mano
@@ -152,14 +153,12 @@ def save_artifacts(report: Dict, out_dir: str) -> None:
 
 
 def load_net(cfg: Config, checkpoint_path: str, device) -> TEHNet:
-    """TEHNet on ``device`` with a reference ``.pth`` checkpoint's weights."""
-    if not checkpoint_path.endswith(".pth"):
-        raise ValueError(f"{checkpoint_path}: the port reads .pth checkpoints; "
-                         "a native JAX checkpoint needs orbax")
-    from ev2hands_tpu_torch.weights import load_pth_state_dict
+    """TEHNet on ``device`` with the weights of a reference ``.pth`` file or
+    of the latest entry of a port checkpoint directory."""
+    from ev2hands_tpu_torch.checkpoint import load_model_state
 
     net = TEHNet(cfg.model, device=device)
-    net.load_state_dict(load_pth_state_dict(checkpoint_path), strict=True)
+    net.load_state_dict(load_model_state(checkpoint_path), strict=True)
     return net.eval()
 
 
@@ -177,7 +176,8 @@ def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description="Evaluate on Ev2Hands-S test")
     ap.add_argument("--data_root", default=DEFAULT_CONFIG.train.data_root)
     ap.add_argument("--split", default="test")
-    ap.add_argument("--checkpoint_path", required=True)
+    ap.add_argument("--checkpoint_path", required=True,
+                    help="a .pth file or a checkpoint directory of the port")
     ap.add_argument("--batch_size", type=int, default=32)
     ap.add_argument("--max_frames", type=int, default=8192)
     ap.add_argument("--full_split", action="store_true",

@@ -125,7 +125,8 @@ def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description="Evaluate on Ev2Hands-R recordings")
     ap.add_argument("--data_root", required=True,
                     help="a .pickle recording or a directory of them")
-    ap.add_argument("--checkpoint_path", required=True)
+    ap.add_argument("--checkpoint_path", required=True,
+                    help="a .pth file or a checkpoint directory of the port")
     ap.add_argument("--batch_size", type=int, default=32)
     ap.add_argument("--max_windows", type=int, default=None)
     ap.add_argument("--out_dir", default="outputs/ev2hands_r")

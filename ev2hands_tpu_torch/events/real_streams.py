@@ -1,8 +1,9 @@
 """Host-side Ev2Hands-R recordings: padded sliding windows of real events
 with their ground-truth joints.
 
-Counterpart of the evaluation half of ``ev2hands_tpu/events/real_streams.py``
-(the training reader waits for the finetuning slice). The host decodes a
+Counterpart of ``ev2hands_tpu/events/real_streams.py``: the sliding windows
+of evaluation and the random windows of finetuning (``Ev2HandRReader``). The
+host decodes a
 recording (the reference's pickle export, or a live ``.aedat4`` through the
 optional ``dv`` package), undistorts the event coordinates once with the
 port's own ``camera.undistort_points`` (no OpenCV), converts timestamps to
@@ -14,7 +15,9 @@ Window semantics (the reference's):
     ``window_ms`` and at least ``min_events`` are in;
   * evaluation slides 2 ms windows by 1 ms;
   * a window's ground truth is its first frame's joints (the reference's
-    sequential evaluator); ``frame_index`` is the majority frame.
+    sequential evaluator); ``frame_index`` is the majority frame;
+  * finetuning draws a recording, a start and a window length of 1 or 2 ms
+    per sample, its ground truth the majority frame's joints.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from ev2hands_tpu_torch.camera import undistort_points
+from ev2hands_tpu_torch.events.streams import stack_samples
 
 WINDOW_MS = 2.0
 OVERLAP_MS = 1.0
@@ -115,6 +119,12 @@ class RealStream:
             raise IndexError(frame_index)
         return np.asarray(self.joints[frame_index], np.float32)
 
+    def joints_2d(self, frame_index: int) -> np.ndarray:
+        """[2, 21, 2] float32 pixels through the pinhole camera matrix."""
+        j3d = self.joints_3d(frame_index) * 1000.0
+        p = j3d @ np.asarray(self.camera["camera_matrix"], np.float32).T
+        return (p[..., :2] / p[..., 2:3]).astype(np.float32)
+
     def sliding_windows(
         self, window_ms: float = WINDOW_MS, advance_ms: float = OVERLAP_MS,
         capacity: int = 4 * MIN_EVENTS,
@@ -135,6 +145,50 @@ class RealStream:
             yield w
             nxt = int(np.searchsorted(ev[:, 2], ev[start, 2] + advance_ms, side="right"))
             start = max(nxt, start + 1)
+
+
+class Ev2HandRReader:
+    """Random training windows over a recording or a directory of them:
+    per sample a recording, a start event and a window length of 1 or 2 ms
+    from one ``np.random.RandomState(seed)``, drawn in the JAX package's
+    order, so both readers give the same batches for the same seed. The
+    ground truth is the majority frame's joints in 3-D (m) and 2-D
+    (pixels)."""
+
+    def __init__(self, root: str, seed: int = 0, capacity: int = 4 * MIN_EVENTS):
+        paths = [root] if not os.path.isdir(root) else [
+            os.path.join(root, f) for f in sorted(os.listdir(root))]
+        self.streams: List[RealStream] = [RealStream(p) for p in paths]
+        self.capacity = capacity
+        self.rng = np.random.RandomState(seed)
+
+    def sample(self) -> Dict[str, np.ndarray]:
+        while True:
+            stream = self.streams[self.rng.randint(len(self.streams))]
+            start = self.rng.randint(0, max(len(stream) - MIN_EVENTS, 1))
+            window_ms = float(self.rng.randint(1, int(WINDOW_MS) + 1))
+            w = stream.window_at(start, window_ms, MIN_EVENTS, self.capacity)
+            if w is None:
+                continue
+            try:
+                j3d = stream.joints_3d(int(w["frame_index"]))
+                j2d = stream.joints_2d(int(w["frame_index"]))
+            except IndexError:
+                continue
+            return {
+                "events": w["events"],
+                "event_valid": w["event_valid"],
+                "left": {"j3d": j3d[0], "j2d": j2d[0], "valid": np.float32(1.0)},
+                "right": {"j3d": j3d[1], "j2d": j2d[1], "valid": np.float32(1.0)},
+                "handedness": np.ones(2, np.int32),
+            }
+
+    def batches(self, batch_size: int, max_batches: Optional[int] = None
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        count = 0
+        while max_batches is None or count < max_batches:
+            yield stack_samples([self.sample() for _ in range(batch_size)])
+            count += 1
 
 
 def sliding_window_batches(

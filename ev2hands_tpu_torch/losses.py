@@ -1,10 +1,11 @@
-"""The training losses on synthetic data, in PyTorch.
+"""The training losses, in PyTorch.
 
-Counterpart of ``ev2hands_tpu/losses.py`` (``mano_losses``, the loss dict
-of the reference's synthetic-data branch): the same keys, reductions and
-weights. Masked reductions average over the elements of the valid samples
-and give 0 when no sample is valid. The regulariser keeps the reference's
-effective weight 0 by default. ``real_losses`` (real data) is not ported.
+Counterpart of ``ev2hands_tpu/losses.py``: ``mano_losses`` (the loss dict
+of the reference's synthetic-data branch) and ``real_losses`` (finetuning
+on real recordings), with the same keys, reductions and weights. Masked
+reductions average over the elements of the valid samples and give 0 when
+no sample is valid. The synthetic regulariser keeps the reference's
+effective weight 0 by default.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from ev2hands_tpu_torch.camera import opengl_projection_transform
 from ev2hands_tpu_torch.config import LossConfig
 from ev2hands_tpu_torch.mano.layer import ManoParams, mano_forward
 from ev2hands_tpu_torch.ops.collision import collision_loss
@@ -141,6 +143,49 @@ def mano_losses(
         outputs["class_logits"], targets["class_logits"],
         torch.as_tensor(cfg.ce_class_weights, device=outputs["class_logits"].device),
         cfg.ce_ignore_index)
+    return losses
+
+
+def real_losses(
+    outputs: Dict,
+    targets: Dict,
+    ctx: CollisionContext,
+    projection_matrix: torch.Tensor,
+    width: int,
+    height: int,
+    cfg: LossConfig = LossConfig(),
+) -> Dict[str, torch.Tensor]:
+    """The real-data loss dict: no MANO ground truth; root-relative joints,
+    the 2-D reprojection of the joints through ``projection_matrix``
+    ([4, 4]), inter-hand consistency and the collision term. ``targets``
+    carries per hand 'j3d' [B, 21, 3] (m), 'j2d' [B, 21, >= 2] (pixels) and
+    'valid' [B], and 'handedness' [B, 2]."""
+    losses: Dict[str, torch.Tensor] = {}
+    losses["loss_interpen"] = _interpen(outputs, ctx, cfg)
+    interacting = targets["handedness"].sum(dim=1) == 2
+    losses["loss_inter_shape"] = masked_mean(
+        mse(outputs["left"]["betas"], outputs["right"]["betas"]), interacting) * 1e3
+    losses["loss_inter_j3d"] = masked_mean(
+        l1((outputs["left"]["j3d"] - outputs["right"]["j3d"]) * 1000.0,
+           (targets["left"]["j3d"] - targets["right"]["j3d"]) * 1000.0),
+        interacting)
+    losses["loss_rj3d"] = 0.0
+    losses["loss_j2d"] = 0.0
+    reg = 0.0
+    for side in ("left", "right"):
+        o, t = outputs[side], targets[side]
+        valid = t["valid"]
+        # the reference's quirk: the running regulariser is scaled by 0.025
+        # inside the loop, so the left hand's share is scaled twice
+        reg = (reg + torch.mean(o["betas"] ** 2) * 1e3
+               + torch.mean(o["hand_pose"] ** 2)) * 0.025
+        rj_o = (o["j3d"][:, 1:, :] - o["j3d"][:, :1, :]) * 1000.0
+        rj_t = (t["j3d"][:, 1:, :] - t["j3d"][:, :1, :]) * 1000.0
+        losses["loss_rj3d"] += masked_mean(l1(rj_o, rj_t), valid) * 10.0
+        j2d = opengl_projection_transform(projection_matrix, width, height,
+                                          o["j3d"] * 1000.0)
+        losses["loss_j2d"] += masked_mean(mse(j2d, t["j2d"][..., :2]), valid)
+    losses["regularizer_loss"] = reg
     return losses
 
 

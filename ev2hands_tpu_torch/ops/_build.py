@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
-``nvcc`` for ``sm_90a`` into a shared library under ``build/`` in the
-repository (listed in ``.gitignore``), which ``ctypes`` loads. The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and a built one is reused. Nothing here runs at import time.
+``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` in the
+repository (``build/`` is listed in ``.gitignore``), which ``ctypes`` loads.
+The host batch loader ``csrc/ev2hands_loader.cpp`` compiles the same way
+with ``g++`` into ``build/host/`` (``load_host``). A library's file name
+carries a hash of its source and flags, so an edited source is rebuilt and
+a built one is reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host")
 
 # Every kernel source of the port: csrc/<name>.cu
 KERNELS = ("fps", "gather", "msg_dense")
@@ -29,6 +32,9 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # Per-source flags. FPS must round exactly like its plain version: no
 # contraction of a multiply and an add into one FMA.
 _EXTRA = {"fps": ["-fmad=false"]}
+
+# host sources (csrc/<name>.cpp), compiled with g++
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # ptxas' report (registers, shared memory, spills) of each build, by name
@@ -45,12 +51,16 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _target(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
+def _hashed(src: str, flags: list, out_dir: str, name: str) -> str:
     with open(src, "rb") as f:
         h = hashlib.sha1(f.read())
-    h.update(" ".join(_ARCH + _COMMON + _EXTRA.get(name, [])).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+    h.update(" ".join(flags).encode())
+    return os.path.join(out_dir, f"lib{name}-{h.hexdigest()[:12]}.so")
+
+
+def _target(name: str) -> str:
+    return _hashed(os.path.join(CSRC, f"{name}.cu"),
+                   _ARCH + _COMMON + _EXTRA.get(name, []), BUILD_DIR, name)
 
 
 def _command(name: str, out: str) -> list:
@@ -90,4 +100,26 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(_target(name))
         _loaded[name] = lib
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.cpp``, compiled
+    with ``g++`` on first use. Raises if it does not build."""
+    key = f"host:{name}"
+    lib = _loaded.get(key)
+    if lib is None:
+        src = os.path.join(CSRC, f"{name}.cpp")
+        out = _hashed(src, HOST_FLAGS, HOST_BUILD_DIR, name)
+        if not os.path.isfile(out):
+            os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            res = subprocess.run(["g++"] + HOST_FLAGS + ["-o", tmp, src],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"{name}.cpp: g++ exit {res.returncode}:\n"
+                                   f"{res.stdout}{res.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(out)
+        _loaded[key] = lib
     return lib

@@ -127,6 +127,20 @@ def tri_tri_intersect(tri_a: torch.Tensor, tri_b: torch.Tensor,
     return ~(sep & ~degenerate).any(dim=-1)
 
 
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b]]`` for x [B, R, ...] and idx [B, K] -> [B, K, ...],
+    with a backward that sums repeated rows in a fixed order on both
+    devices: advanced indexing on the card (its backward, index_put with
+    accumulate, sorts the indices), ``torch.gather`` on the CPU (its
+    backward, scatter_add, sums each destination serially; the CPU's
+    index_put accumulates with atomics across threads)."""
+    if x.is_cuda:
+        return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+    tail = x.shape[2:]
+    return torch.gather(x, 1, idx.reshape(*idx.shape, *([1] * len(tail))).expand(
+        *idx.shape, *tail))
+
+
 def penetration_penalty(
     triangles: torch.Tensor,   # [B, T, 3, 3]
     pairs: torch.Tensor,       # [B, K, 2]
@@ -137,9 +151,8 @@ def penetration_penalty(
     each vertex of B behind A's plane contributes
     ``relu(-(v - c_A).n_A) * exp(-|v - c_A|^2 / (2 sigma^2))``, plus the
     symmetric term; vertices in front contribute nothing."""
-    rows = torch.arange(triangles.shape[0], device=triangles.device)[:, None]
-    tri_a = triangles[rows, pairs[..., 0]]   # [B, K, 3, 3]
-    tri_b = triangles[rows, pairs[..., 1]]
+    tri_a = take_rows(triangles, pairs[..., 0])   # [B, K, 3, 3]
+    tri_b = take_rows(triangles, pairs[..., 1])
 
     def field(src, pts):
         c = src.mean(dim=-2, keepdim=True)
@@ -168,7 +181,12 @@ def collision_loss(
     """The mean positive penetration over the batch's colliding pairs,
     times ``weight``; 0 when nothing collides."""
     verts = torch.cat([verts_left, verts_right], dim=1)   # [B, 2V, 3]
-    triangles = verts[:, faces]                             # [B, T, 3, 3]
+    if verts.is_cuda:
+        triangles = verts[:, faces]                         # [B, T, 3, 3]
+    else:
+        B, T = verts.shape[0], faces.shape[0]
+        triangles = take_rows(verts, faces.reshape(1, -1).expand(B, -1)).reshape(
+            B, T, 3, 3)
     cp = find_collision_pairs(triangles.detach(), adjacency, max_pairs)
     pen = penetration_penalty(triangles, cp.pairs, cp.intersecting, sigma)
     count = (pen > 0).sum().to(pen.dtype)

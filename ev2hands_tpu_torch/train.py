@@ -1,29 +1,53 @@
-"""The TEHNet training step: raw event windows and MANO ground truth in, one
-Adam update out.
+"""TEHNet training: the step and the loop.
 
-Counterpart of ``make_train_step`` in ``ev2hands_tpu/train.py``: ERPC with
-augmentation -> ``TEHNet`` in training mode -> ``apply_mano`` ->
-``mano_losses`` with the collision term -> backward -> Adam. The hands are
-the synthetic MANO models (``build_hands``); the reader, the training loop
-with eval and checkpointing, and multi-device runs are not ported.
+Counterpart of ``ev2hands_tpu/train.py``. A step (``make_train_step``): ERPC
+with augmentation -> ``TEHNet`` in training mode -> ``apply_mano`` ->
+``mano_losses`` with the collision term -> backward -> Adam. The loop
+(``train``): batches from the native loader (or the Python reader) through
+a ``Prefetcher``, losses logged every ``msg_iter`` steps, an evaluation every
+``save_iter`` steps with a checkpoint on a new best score, warm start from a
+``.pth`` file or a checkpoint directory, and resume. It runs on the card
+unless asked for the CPU. The hands are the synthetic MANO models
+(``build_hands``); multi-device runs are not ported.
+
+    python -m ev2hands_tpu_torch.train --data_root data/Ev2Hands-S \
+        --synthetic_mano [--device cpu] [--max_iter 100] [--resume_dir DIR]
+
+Randomness: the step ``it`` draws from a generator seeded by ``(seed + 1,
+it)`` and the evaluation's batch ``i`` from one seeded by ``(0, i)``
+(``seeded_generator``), so a resumed run draws what the uninterrupted run
+drew and a checkpoint holds no generator state. As in the JAX package, a
+resumed loop restarts its batch source at batch 0.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import argparse
+import dataclasses
+import time
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ev2hands_tpu_torch.config import Config, TrainConfig
+from ev2hands_tpu_torch.checkpoint import Checkpointer, load_model_state
+from ev2hands_tpu_torch.config import DEFAULT_CONFIG, Config, TrainConfig
 from ev2hands_tpu_torch.events.erpc import NoiseDraws, erpc_batch_transform
+from ev2hands_tpu_torch.evaluate import make_full_eval_step
+from ev2hands_tpu_torch.events.streams import Ev2HandSReader, Prefetcher
 from ev2hands_tpu_torch.losses import CollisionContext, mano_losses, total_loss
 from ev2hands_tpu_torch.mano.layer import ManoParams, create_mano_params
 from ev2hands_tpu_torch.mano.model_data import synthetic_mano_models
+from ev2hands_tpu_torch.metrics import PckAccumulator
 from ev2hands_tpu_torch.model.tehnet import TEHNet, apply_mano
 from ev2hands_tpu_torch.ops.collision import (
     build_adjacency_mask,
     build_two_hand_faces,
 )
+from ev2hands_tpu_torch.utils.logging import RunLogger
+
+# event rows [n, 6] and their per-frame annotations, held in memory
+Rows = Tuple[np.ndarray, List[Dict]]
 
 
 def build_hands(cfg: Config, device="cuda") -> Dict[str, ManoParams]:
@@ -39,6 +63,22 @@ def build_collision_context(hands: Dict[str, ManoParams]) -> CollisionContext:
     return CollisionContext(
         faces=torch.as_tensor(faces, device=device),
         adjacency=torch.as_tensor(build_adjacency_mask(faces), device=device))
+
+
+def check_device(device, what: str) -> torch.device:
+    """``device`` as a torch.device; raises when it is the card and there
+    is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: no CUDA device is available")
+    return device
+
+
+def seeded_generator(seed: int, index: int, device) -> torch.Generator:
+    """A generator on ``device`` whose seed is a hash of ``(seed, index)``:
+    the draws of step (or batch) ``index`` of a run seeded ``seed``."""
+    state = np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
 
 
 def make_optimizer(params, cfg: TrainConfig) -> torch.optim.Adam:
@@ -63,9 +103,10 @@ def forward_losses(
     return total_loss(losses), losses
 
 
-def _to(x, device):
+def to_device(x, device):
+    """A (nested dict of) numpy arrays or tensors as tensors on ``device``."""
     if isinstance(x, dict):
-        return {k: _to(v, device) for k, v in x.items()}
+        return {k: to_device(v, device) for k, v in x.items()}
     return torch.as_tensor(x, device=device)
 
 
@@ -94,15 +135,13 @@ def make_train_step(
     A step mutates in place: ``net``'s parameters (the Adam update), its
     BatchNorm running statistics (the forward in training mode) and the
     optimizer's state."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_train_step: no CUDA device is available")
+    device = check_device(device, "make_train_step")
     sensor = cfg.sensor
 
     def step(batch: Dict, generator: Optional[torch.Generator] = None, *,
              draws: Optional[torch.Tensor] = None,
              noise: Optional[NoiseDraws] = None) -> Dict[str, float]:
-        batch = _to(batch, device)
+        batch = to_device(batch, device)
         erpc = erpc_batch_transform(
             batch["events"], batch["labels"], generator, draws=draws,
             width=sensor.width, height=sensor.height,
@@ -122,3 +161,272 @@ def make_train_step(
         return dict(zip(names, values.tolist()))
 
     return step
+
+
+def make_eval_step(net: TEHNet, hands: Dict[str, ManoParams], cfg: Config,
+                   device="cuda"):
+    """-> ``step(batch, generator=None, *, draws=None)`` -> (predicted,
+    ground-truth joints), each [B, 2, 21, 3] in mm: the joints of
+    ``evaluate.make_full_eval_step`` (no second forward), with ``net`` put
+    in eval mode at every call, so that it can run between training
+    steps."""
+    full = make_full_eval_step(net, hands, cfg, device)
+
+    def step(batch: Dict, generator: Optional[torch.Generator] = None, *,
+             draws: Optional[torch.Tensor] = None):
+        net.eval()
+        pred_j, gt_j, _, _ = full(batch, generator, draws=draws)
+        return pred_j, gt_j
+
+    return step
+
+
+def evaluate(eval_step, reader: Ev2HandSReader, cfg: Config,
+             max_frames: Optional[int] = None, device="cuda") -> Tuple[Dict, float]:
+    """PCK curves and AUC (0-50 mm over 51 steps) over ``max(1, max_frames
+    // bs)`` batches of ``reader.batches(shuffle=False)`` (``max_frames``
+    defaults to ``cfg.train.max_eval_iters``, bs is
+    ``cfg.train.eval_batch_size``), stopping once ``max_frames`` frames are
+    in -> (metrics, score = the relative AUC). Batch ``i`` draws from
+    ``seeded_generator(0, i)``."""
+    acc = PckAccumulator(num_steps=50, dist_max_mm=50.0)
+    max_frames = max_frames or cfg.train.max_eval_iters
+    bs = cfg.train.eval_batch_size
+    for i, batch in enumerate(reader.batches(bs, shuffle=False,
+                                             max_batches=max(1, max_frames // bs))):
+        pred, gt = eval_step(batch, seeded_generator(0, i, device))
+        acc.update(pred, gt)
+        if acc.frames >= max_frames:
+            break
+    return acc.result()
+
+
+class LoopStats(NamedTuple):
+    """Where a loop's wall time went, in s; the ``steps`` taken in this run,
+    the evaluations and saves made, and the last step's losses."""
+
+    steps: int
+    wall_s: float
+    loader_wait_s: float
+    eval_s: float
+    save_s: float
+    evals: int
+    saves: int
+    losses: Dict[str, float]
+
+
+class TrainRun(NamedTuple):
+    """What a training or finetuning run leaves: the model and optimizer
+    (on their device), the step count, the best evaluation score, the run
+    directory, the batch source used and the loop's timings."""
+
+    net: TEHNet
+    optimizer: torch.optim.Optimizer
+    step: int
+    max_eval_score: float
+    run_dir: str
+    source: str
+    stats: LoopStats
+
+
+def run_loop(step, batches: Iterator[Dict], evaluate_fn: Callable[[], Tuple[Dict, float]],
+             run: "RunStart", *, max_iter: int, seed: int, save_iter: int,
+             msg_iter: int, device) -> Tuple[int, float, LoopStats]:
+    """The loop of training and finetuning: step ``it`` (from ``run.step``
+    to ``max_iter``) takes the next batch and ``seeded_generator(seed,
+    it)``; the mean losses are logged every ``msg_iter`` steps; every
+    ``save_iter`` steps ``evaluate_fn()`` scores the model and a new best
+    score saves a checkpoint in the run directory's ``ckpt``
+    (asynchronously; joined before returning, and the log closed).
+    -> (steps done, best score, timings)."""
+    logger, start_it, best_score = run.logger, run.step, run.best_score
+    ckptr = Checkpointer(f"{logger.run_dir}/ckpt")
+    loss_log: Dict[str, float] = {}
+    losses: Dict[str, float] = {}
+    loader_s = eval_s = save_s = 0.0
+    evals = saves = 0
+    it = start_it
+    st = glob_st = time.perf_counter()
+    while it < max_iter:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        loader_s += time.perf_counter() - t0
+        if batch is None:
+            break
+        losses = step(batch, seeded_generator(seed, it, device))
+        for k, v in losses.items():
+            loss_log[k] = loss_log.get(k, 0.0) + v
+        it += 1
+        if it % msg_iter == 0:
+            ed = time.perf_counter()
+            eta = int((max_iter - it + 1) * (ed - glob_st) / max(it - 1, 1))
+            logger.info(", ".join(
+                [f"it: {it}/{max_iter}"]
+                + [f"{k}: {v / msg_iter:.3f}" for k, v in loss_log.items()]
+                + [f"time: {ed - st:.2f}s", f"eta: {eta}s"]))
+            loss_log, st = {}, ed
+        if it % save_iter == 0:
+            t0 = time.perf_counter()
+            metrics, score = evaluate_fn()
+            eval_s += time.perf_counter() - t0
+            evals += 1
+            logger.info(f"eval@{it}: score={score} auc={metrics['auc']}")
+            logger.scalar("relative_auc", score, it)
+            if score > best_score:
+                best_score = score
+                t0 = time.perf_counter()
+                ckptr.save(it, run.net, run.optimizer, best_score)
+                save_s += time.perf_counter() - t0
+                saves += 1
+                logger.info(f"saved best checkpoint at {it}")
+    t0 = time.perf_counter()
+    ckptr.wait()  # join the save in flight
+    save_s += time.perf_counter() - t0
+    stats = LoopStats(it - start_it, time.perf_counter() - glob_st, loader_s,
+                      eval_s, save_s, evals, saves, losses)
+    logger.info(f"{stats.steps} steps in {stats.wall_s:.2f} s: waiting on the "
+                f"loader {stats.loader_wait_s:.2f} s, evaluating {stats.eval_s:.2f} s "
+                f"({stats.evals}), saving {stats.save_s:.2f} s ({stats.saves})")
+    logger.close()
+    return it, best_score, stats
+
+
+class RunStart(NamedTuple):
+    """A run's logger, hands, collision context, model and Adam, and the
+    step and best score it starts from."""
+
+    logger: RunLogger
+    hands: Dict[str, ManoParams]
+    ctx: CollisionContext
+    net: TEHNet
+    optimizer: torch.optim.Optimizer
+    step: int
+    best_score: float
+
+
+def start_run(name: str, cfg: Config, synthetic_mano: bool, checkpoint_path: str,
+              resume_dir: Optional[str], device, base_dir: str,
+              tensorboard: bool) -> RunStart:
+    """The set-up that training and finetuning share: the run directory
+    ``{base_dir}/{name}_<stamp>`` with the config and the model, the model
+    and Adam on ``device``, warm-started from ``checkpoint_path`` (a
+    ``.pth`` file or a checkpoint directory) and then resumed from the
+    latest checkpoint in ``resume_dir`` (model, Adam, step, best score)
+    where it has one."""
+    if not synthetic_mano:
+        raise NotImplementedError(
+            "the port reads no MANO pickles yet: pass synthetic_mano=True")
+    logger = RunLogger(name, base_dir, tensorboard)
+    hands = build_hands(cfg, device=device)
+    net = TEHNet(cfg.model, device=device)
+    optimizer = make_optimizer(net.parameters(), cfg.train)
+    logger.log_run_config(cfg, net)
+    if checkpoint_path:
+        net.load_state_dict(load_model_state(checkpoint_path), strict=True)
+        logger.info(f"warm-started from {checkpoint_path}")
+    step, best_score = 0, -float("inf")
+    if resume_dir:
+        prev = Checkpointer(resume_dir)
+        if prev.latest_step() is not None:
+            blob = prev.restore_into(net, optimizer)
+            step, best_score = blob["step"], blob["max_eval_score"]
+            logger.info(f"resumed from {resume_dir} at step {step} "
+                        f"(best score {best_score})")
+    return RunStart(logger, hands, build_collision_context(hands), net, optimizer,
+                    step, best_score)
+
+
+def open_train_source(cfg: Config, train_data: Optional[Rows] = None
+                      ) -> Tuple[Iterator[Dict], str]:
+    """The training batches, random windows of ``cfg.train.batch_size``,
+    and the name of their source: the native loader where its library
+    builds, else the Python reader; over ``train_data`` or over
+    ``{data_root}/train``."""
+    from ev2hands_tpu_torch.events.native_loader import (
+        NativeEv2HandSLoader,
+        native_available,
+    )
+
+    n, bs, seed = cfg.model.n_points, cfg.train.batch_size, cfg.train.seed
+    root = f"{cfg.train.data_root}/train"
+    if native_available():
+        # One thread: a batch of B x N rows copies in well under a
+        # millisecond, less than starting a pool of threads for it costs
+        # (chip_smoke.py phase 14 times both). The batches do not depend on
+        # the thread count.
+        kw = dict(n_threads=1, seed=seed)
+        loader = (NativeEv2HandSLoader.from_rows(*train_data, n, **kw)
+                  if train_data is not None else NativeEv2HandSLoader(root, n, **kw))
+        return loader.batches(bs), "native"
+    reader = (Ev2HandSReader.from_rows(*train_data, n) if train_data is not None
+              else Ev2HandSReader(root, n))
+    return reader.batches(bs, shuffle=True), "python"
+
+
+def train(cfg: Config = DEFAULT_CONFIG, synthetic_mano: bool = False,
+          max_iter: Optional[int] = None, resume_dir: Optional[str] = None, *,
+          device="cuda", train_data: Optional[Rows] = None,
+          val_data: Optional[Rows] = None, base_dir: str = "runs",
+          tensorboard: bool = False) -> TrainRun:
+    """The pretraining loop on Ev2Hands-S (``run_loop``) with its run
+    directory under ``base_dir``. ``cfg.train.checkpoint_path`` (a ``.pth``
+    file or a checkpoint directory) warm-starts the weights; ``resume_dir``
+    (a previous run's ``ckpt`` directory) restores the model, Adam, the step
+    and the best score of its latest checkpoint. The splits are
+    ``{data_root}/train`` and ``/val``, or the rows given as ``train_data``
+    and ``val_data``."""
+    device = check_device(device, "train")
+    run = start_run("train", cfg, synthetic_mano, cfg.train.checkpoint_path,
+                    resume_dir, device, base_dir, tensorboard)
+    step = make_train_step(run.net, run.hands, run.ctx, cfg, run.optimizer,
+                           device=device)
+    eval_step = make_eval_step(run.net, run.hands, cfg, device)
+    n = cfg.model.n_points
+    val_reader = (Ev2HandSReader.from_rows(*val_data, n) if val_data is not None
+                  else Ev2HandSReader(f"{cfg.train.data_root}/val", n))
+    source, name = open_train_source(cfg, train_data)
+    run.logger.info("using the native C++ batch loader" if name == "native"
+                    else "native loader unavailable; using the Python reader")
+    it, best_score, stats = run_loop(
+        step, Prefetcher(source),
+        lambda: evaluate(eval_step, val_reader, cfg, device=device), run,
+        max_iter=max_iter or cfg.train.max_iter, seed=cfg.train.seed + 1,
+        save_iter=cfg.train.save_iter, msg_iter=cfg.train.msg_iter, device=device)
+    return TrainRun(run.net, run.optimizer, it, best_score, run.logger.run_dir, name,
+                    stats)
+
+
+def main(argv=None) -> TrainRun:
+    ap = argparse.ArgumentParser(description="Pretrain TEHNet on Ev2Hands-S")
+    ap.add_argument("--data_root", default=DEFAULT_CONFIG.train.data_root)
+    ap.add_argument("--batch_size", type=int, default=8)
+    ap.add_argument("--checkpoint_path", default="",
+                    help="warm start: a .pth file or a checkpoint directory")
+    ap.add_argument("--max_iter", type=int, default=None)
+    ap.add_argument("--save_iter", type=int, default=DEFAULT_CONFIG.train.save_iter)
+    ap.add_argument("--max_eval_iters", type=int,
+                    default=DEFAULT_CONFIG.train.max_eval_iters)
+    ap.add_argument("--resume_dir", default=None,
+                    help="a previous run's ckpt directory to resume from")
+    ap.add_argument("--eval_batch_size", type=int,
+                    default=DEFAULT_CONFIG.train.eval_batch_size)
+    ap.add_argument("--n_points", type=int, default=DEFAULT_CONFIG.model.n_points)
+    ap.add_argument("--msg_iter", type=int, default=DEFAULT_CONFIG.train.msg_iter)
+    ap.add_argument("--synthetic_mano", action="store_true")
+    ap.add_argument("--tensorboard", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    cfg = DEFAULT_CONFIG.replace(
+        model=dataclasses.replace(DEFAULT_CONFIG.model, n_points=args.n_points),
+        train=dataclasses.replace(
+            DEFAULT_CONFIG.train, data_root=args.data_root,
+            batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,
+            checkpoint_path=args.checkpoint_path, save_iter=args.save_iter,
+            msg_iter=args.msg_iter, max_eval_iters=args.max_eval_iters))
+    return train(cfg, synthetic_mano=args.synthetic_mano, max_iter=args.max_iter,
+                 resume_dir=args.resume_dir, device=args.device,
+                 tensorboard=args.tensorboard)
+
+
+if __name__ == "__main__":
+    main()

@@ -10,6 +10,12 @@ of the plain op it replaces and against ``jax.vjp`` of the JAX package's
 function. On the card, ``tests/test_torch_kernels.py`` runs each twice at
 the training step's shapes, and two whole training steps, for the same
 bits.
+
+On the CPU the collision term's gathers (advanced indexing, whose
+backward ``index_put`` accumulates with atomics across threads there) take
+rows with ``ops/collision.take_rows`` (``torch.gather`` on the CPU, whose
+backward sums each row serially): its gradients are held for the same
+bits run to run.
 """
 
 import flax.linen as fnn
@@ -19,7 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from ev2hands_tpu.ops import pointnet as jp
+from ev2hands_tpu_torch.mano.model_data import synthetic_mano_models
 from ev2hands_tpu_torch.model import layers as tl
+from ev2hands_tpu_torch.ops import collision as tc
 from ev2hands_tpu_torch.ops import pointnet as tp
 
 # float64 on both sides; the sums run in other orders (a matrix product
@@ -113,3 +121,36 @@ def test_conv_k3_backward_matches_autograd_and_jax():
         assert a.shape == bb.shape, name
         _close(a.numpy(), bb.numpy(), f"{name} vs autograd")
         _close(a.numpy(), c, f"{name} vs jax.vjp")
+
+
+def test_collision_loss_backward_same_bits_on_cpu():
+    """The collision loss's vertex gradients on the CPU (float32, B=2, the
+    synthetic hands overlapping, T = 3076 triangles, every thread of the
+    host) give the same bits in ten runs (through plain advanced indexing
+    about seven runs in ten differ from the first), and match the gradients with the
+    triangles gathered by plain advanced indexing to float32 rounding."""
+    models = synthetic_mano_models(0)
+    faces = tc.build_two_hand_faces(models["left"].faces, models["right"].faces)
+    adj = torch.from_numpy(tc.build_adjacency_mask(faces))
+    faces = torch.from_numpy(faces)
+    rng = np.random.RandomState(9)
+    vl = (models["left"].v_template[None] + 0.01 * rng.randn(2, 778, 3)).astype(np.float32)
+    vr = (models["right"].v_template[None] + 0.01 * rng.randn(2, 778, 3)).astype(np.float32)
+
+    def grads(loss_fn):
+        leaves = [torch.from_numpy(v).requires_grad_(True) for v in (vl, vr)]
+        loss_fn(*leaves).backward()
+        return torch.cat([leaf.grad.ravel() for leaf in leaves])
+
+    runs = [grads(lambda a, b: tc.collision_loss(a, b, faces, adj)) for _ in range(10)]
+    assert runs[0].abs().max() > 0
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+    def indexed(a, b):
+        tris = torch.cat([a, b], dim=1)[:, faces]
+        cp = tc.find_collision_pairs(tris.detach(), adj, 128)
+        pen = tc.penetration_penalty(tris, cp.pairs, cp.intersecting)
+        return pen.sum() / (pen > 0).sum().to(pen.dtype) * 1e2
+
+    want = grads(indexed)
+    assert (runs[0] - want).abs().max() <= 1e-5 * want.abs().max()

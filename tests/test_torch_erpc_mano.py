@@ -139,6 +139,9 @@ def test_port_imports_no_jax():
         "import ev2hands_tpu_torch.serve, ev2hands_tpu_torch.weights\n"
         "import ev2hands_tpu_torch.ops._build, ev2hands_tpu_torch.train\n"
         "import ev2hands_tpu_torch.evaluate, ev2hands_tpu_torch.evaluate_real\n"
+        "import ev2hands_tpu_torch.finetune, ev2hands_tpu_torch.checkpoint\n"
+        "import ev2hands_tpu_torch.events.native_loader\n"
+        "import ev2hands_tpu_torch.utils.logging, ev2hands_tpu_torch.camera\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('h5py', 'cv2')]\n"
         "assert not bad, bad\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -587,3 +587,75 @@ def test_two_training_steps_bitwise_equal(cuda):
     assert la["loss_interpen"] > 0
     assert [k for k in ga if not torch.equal(ga[k], gb[k])] == []
     assert [k for k in sa if not torch.equal(sa[k], sb[k])] == []
+
+
+# --- the training loop on the card ------------------------------------------
+
+def test_resume_two_steps_bitwise_on_card(cuda, tmp_path):
+    """The loop's resume on the card (full TEHNet width, B=2, N=2048, the
+    gather and scatter-add kernels, the loop's seeded draws: random FPS
+    starts, dropout, augmentation): two steps, a checkpoint, two more
+    steps; a fresh model and Adam restored from the checkpoint on the card
+    take the same two steps to the same bits in every parameter, BatchNorm
+    statistic and Adam state tensor."""
+    from ev2hands_tpu_torch import train as ttr
+    from ev2hands_tpu_torch.checkpoint import Checkpointer
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.model.tehnet import TEHNet
+    from ev2hands_tpu_torch.weights import init_weights
+
+    B, N = 2, 2048
+    cfg = DEFAULT_CONFIG.replace(model=ModelConfig(
+        n_points=N, pallas_gather=True, pallas_gather_bwd=True))
+    hands = ttr.build_hands(cfg, device=cuda)
+    ctx = ttr.build_collision_context(hands)
+    rng = np.random.RandomState(5)
+    batches = [_train_batch(rng, B, N) for _ in range(4)]
+
+    def model():
+        net = TEHNet(cfg.model, device=cuda)
+        net.load_state_dict(init_weights(torch.Generator().manual_seed(0), cfg.model))
+        opt = ttr.make_optimizer(net.parameters(), cfg.train)
+        return net, opt, ttr.make_train_step(net, hands, ctx, cfg, opt, device=cuda)
+
+    def run(step, its):
+        for it in its:
+            step(batches[it], ttr.seeded_generator(cfg.train.seed + 1, it, cuda))
+
+    net, opt, step = model()
+    run(step, (0, 1))
+    ckptr = Checkpointer(str(tmp_path / "ckpt"))
+    ckptr.save(2, net, opt)
+    run(step, (2, 3))
+    net2, opt2, step2 = model()
+    assert ckptr.restore_into(net2, opt2)["step"] == 2
+    run(step2, (2, 3))
+    torch.cuda.synchronize()
+    a, b = net.state_dict(), net2.state_dict()
+    assert [k for k in a if not torch.equal(a[k], b[k])] == []
+    sa, sb = opt.state_dict()["state"], opt2.state_dict()["state"]
+    assert [(i, k) for i in sa for k in sa[i]
+            if not torch.equal(sa[i][k], sb[i][k])] == []
+
+
+def test_native_loader_through_the_prefetcher(cuda):
+    """The loop's batch source (the native loader over rows in memory,
+    through the Prefetcher) gives the loader's fill_random batches 0, 1, 2
+    in order."""
+    from ev2hands_tpu_torch import train as ttr
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.events.native_loader import NativeEv2HandSLoader
+    from ev2hands_tpu_torch.events.streams import Prefetcher, synthetic_ev2hands_s
+
+    cfg = DEFAULT_CONFIG.replace(model=ModelConfig(n_points=2048))
+    rows, annotations = synthetic_ev2hands_s(n_events=65536, n_frames=16)
+    source, name = ttr.open_train_source(cfg, (rows, annotations))
+    assert name == "native"
+    loader = NativeEv2HandSLoader.from_rows(rows, annotations, 2048, seed=cfg.train.seed)
+    for step, batch in zip(range(3), Prefetcher(source)):
+        want = loader.fill_batch(cfg.train.batch_size, step=step)
+        for key in ("events", "labels", "handedness"):
+            np.testing.assert_array_equal(batch[key], want[key])
+        for side in ("left", "right"):
+            for key, value in want[side].items():
+                np.testing.assert_array_equal(batch[side][key], value)
