@@ -120,10 +120,41 @@ Phases (any failed check raises, so the script exits non-zero):
      raised by 0.4 m in z so that the 2-D term's projection is not at the
      camera centre: every loss term within 1e-4 relative (at the seeded
      weights, where depths near 0 amplify rounding, the pair is logged);
- 16. a `kernels` JSON line (times from CUDA events, bounds from this run's
+ 16. serving export: export.export_serving at full TEHNet width (B=16,
+     8,192 padded events a window, n_points=2048, seeded weights) on the
+     card, timed, saved and loaded (.pt2, bytes and seconds printed); the
+     graph holds exactly 3 ev2hands.fps and 3 ev2hands.msg_scale_sparse
+     nodes; every loaded parameter, buffer and constant is on the card and
+     equal to the live one; 4 requests through the loaded program with
+     exactly 3 FPS and 3 grouping launches each, bitwise equal to the live
+     serving function on the same inputs and uniforms; both timed
+     (windows/s); then the same with pallas_fused_msg=True (1 fused
+     grouping node and launch a request);
+ 17. the demo: demo.run_demo on a synthetic recording, B=8, 50 windows (the
+     tail batch holds 2), weights with the hands at 0.4 m in front of the
+     camera, once with the splat pane and once with the device pane, into
+     an in-memory sink: 50 frames of [260, 1038, 3] uint8, exactly 3 FPS
+     and 3 grouping launches a batch, inference and steady-state windows/s;
+     then the tail batch's windows through the demo step on the card and
+     on the CPU with the same weights and uniforms: xy, polarity and the
+     segmentation bitwise, vertices within 1e-4 m, projected vertices
+     within the pixel bound of that gate (stated in the log), the
+     rasterised pane equal but on at most 1% of its covered pixels (the
+     differing ones counted and printed);
+ 18. the 4-channel input: raw_window_transform -> TEHNet(erpc=False) ->
+     MANO at B=16, N=2048, 4 requests with exactly 3 FPS and 3 grouping
+     launches each, windows/s, and 2 windows against the CPU (atol 1e-3 on
+     logits and MANO parameters, 1e-4 m on vertices and joints);
+ 19. the MANO loader: official-layout MANO pickles (chumpy objects, a scipy
+     sparse J_regressor) written from synthetic_mano_models(0) and read
+     back through cfg.mano.model_path; one serving request with those hands
+     bitwise equal to one with the synthetic models (the left-hand
+     shapedirs fix applied, as the loader applies it); then the device
+     memory statistics (utils/device.get_device_memory_usage);
+ 20. a `kernels` JSON line (times from CUDA events, bounds from this run's
      inputs), the gather and scatter-add also by training shape, FPS with
      its chain floor, every phase-3 shape and the sweep;
- 17. last line: {"ok": true, "device": {...}}.
+ 21. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result without a CUDA device, or without the
 repository's package beside it.
@@ -840,7 +871,7 @@ def training_phases(torch, np, dev, state):
     def build_step(model_cfg, device):
         c = cfg.replace(model=model_cfg)
         if device not in hands:
-            h = ktrain.build_hands(c, device=device)
+            h = ktrain.build_hands(c, synthetic=True, device=device)
             hands[device] = (h, ktrain.build_collision_context(h))
         net = TEHNet(model_cfg, device=device)
         net.load_state_dict(state, strict=True)
@@ -1175,7 +1206,7 @@ def evaluation_phases(torch, np, dev, state):
     for device in ("cuda", "cpu"):
         nets[device] = TEHNet(cfg.model, device=device)
         nets[device].load_state_dict(state, strict=True)
-        hands[device] = build_hands(cfg, device=device)
+        hands[device] = build_hands(cfg, synthetic=True, device=device)
     per_batch = {"fps": 3, "msg_fused_sparse": 1}
     rows, annotations = synthetic_ev2hands_s(n_events=65536, n_frames=16)
     reader = Ev2HandSReader.from_rows(rows, annotations, N)
@@ -1383,7 +1414,7 @@ def training_loop_phase(torch, np, dev, state):
         net = TEHNet(cfg.model, device=dev)
         opt = ktrain.make_optimizer(net.parameters(), cfg.train)
         Checkpointer(ckpt).restore_into(net, opt, step=LOOP_SAVE_ITER)
-        hands = ktrain.build_hands(cfg, device=dev)
+        hands = ktrain.build_hands(cfg, synthetic=True, device=dev)
         step = ktrain.make_train_step(net, hands, ktrain.build_collision_context(hands),
                                       cfg, opt, device=dev)
         loader = NativeEv2HandSLoader.from_rows(*rows, N, n_threads=1,
@@ -1503,7 +1534,7 @@ def finetune_phase(torch, np, dev, state):
             for device in (dev, "cpu"):
                 net = TEHNet(c.model, device=device)
                 net.load_state_dict(weights, strict=True)
-                hands = ktrain.build_hands(c, device=device)
+                hands = ktrain.build_hands(c, synthetic=True, device=device)
                 step = kft.make_finetune_step(
                     net, hands, ktrain.build_collision_context(hands), c,
                     ktrain.make_optimizer(net.parameters(), c.train),
@@ -1522,6 +1553,405 @@ def finetune_phase(torch, np, dev, state):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
+
+# the export (phase 16): padded window capacity; the demo (phase 17):
+# batch and windows (50 = 6 batches of 8 and a tail of 2)
+EXPORT_EVENTS = 8192
+DEMO_B, DEMO_WINDOWS = 8, 50
+# the vertex gate of phases 5 and 18, in meters
+VERTEX_TOL = 1e-4
+
+
+def real_request(np, seed, n_events=EXPORT_EVENTS, width=346, height=260):
+    """Padded real windows [B, n_events, 4] (x, y, t in ms over 2 ms,
+    polarity), each with 2,048 to n_events real events, and the mask."""
+    rng = np.random.RandomState(seed)
+    ev = np.stack([
+        rng.randint(0, width, (B, n_events)), rng.randint(0, height, (B, n_events)),
+        np.sort(rng.uniform(0, 2, (B, n_events))), rng.randint(0, 2, (B, n_events)),
+    ], -1).astype(np.float32)
+    valid = np.arange(n_events)[None] < rng.randint(2048, n_events + 1, (B, 1))
+    return ev, valid
+
+
+def at_depth(state, z=-0.4):
+    """The seeded weights with both regressors' translation bias at ``z`` m
+    in z: the seeded heads regress translations near 0, which put the
+    meshes at the camera's centre; at -0.4 m they are in front of the
+    OpenGL camera (-z forward) and project into the image."""
+    out = dict(state)
+    for side in ("left", "right"):
+        key = f"{side}_mano_regressor.mano_regressor.4.bias"
+        out[key] = state[key].clone()
+        out[key][-1] = z
+    return out
+
+
+def export_phase(torch, np, dev, state, tmp):
+    """Phase 16: the serving function exported on the card, saved, loaded;
+    its graph's kernel ops; 4 requests through the loaded program, counted,
+    bitwise equal to the live function; windows/s of both; then the same
+    with pallas_fused_msg=True. -> (launches, numbers)."""
+    from ev2hands_tpu_torch import export as kex
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.model.tehnet import TEHNet
+
+    requests = [real_request(np, 30 + j, EXPORT_EVENTS) for j in range(REQUESTS)]
+    requests = [(torch.from_numpy(e).to(dev), torch.from_numpy(v).to(dev),
+                 torch.rand((B, N), generator=torch.Generator().manual_seed(40 + j),
+                            dtype=torch.float64).to(dev))
+                for j, (e, v) in enumerate(requests)]
+    launches, numbers = {}, {}
+    for name, fused, per_request in (
+            ("default", False, {"fps": 3, "msg_sparse": 3}),
+            ("fused", True, {"fps": 3, "msg_fused_sparse": 1})):
+        cfg = DEFAULT_CONFIG.replace(model=ModelConfig(n_points=N, pallas_fused_msg=fused))
+        net = TEHNet(cfg.model, device=dev)
+        net.load_state_dict(state, strict=True)
+        hands = ktrain.build_hands(cfg, synthetic=True, device=dev)
+        path = os.path.join(tmp, f"serving_{name}.pt2")
+        t0 = time.perf_counter()
+        program = kex.export_serving(net, hands, cfg, B, EXPORT_EVENTS)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.export.save(program, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = kex.load_serving(path)
+        load_s = time.perf_counter() - t0
+        loaded_program = torch.export.load(path)
+        counts = kex.op_counts(program)
+        want = ({"fps": 3, "msg_fused_scales_sparse": 1} if fused
+                else {"fps": 3, "msg_scale_sparse": 3})
+        n_nodes = len(program.graph.nodes)
+        log(f"export ({name}): torch.export {export_s:.2f} s, {n_nodes} graph nodes, "
+            f"ops {counts}; save {save_s:.2f} s, {os.path.getsize(path)} bytes; "
+            f"load {load_s:.2f} s")
+        if counts != want or kex.op_counts(loaded_program) != want:
+            raise AssertionError(f"export ({name}): kernel ops {counts}, want {want}")
+        # the loaded program's weights and constants on the card, equal to
+        # the live ones
+        live_state = {f"net.{k}": v for k, v in net.state_dict().items()}
+        bad = []
+        for kind, tensors, ref in (
+                ("parameter or buffer", loaded_program.state_dict, live_state),
+                ("constant", loaded_program.constants, program.constants)):
+            for k, v in tensors.items():
+                if torch.is_tensor(v) and (v.device.type != dev.type
+                                           or not torch.equal(v, ref[k])):
+                    bad.append(f"{kind} {k} {tuple(v.shape)} {v.dtype} on {v.device}")
+        log(f"export ({name}): loaded {len(loaded_program.state_dict)} parameters and "
+            f"buffers and {len(loaded_program.constants)} constants; off the card or "
+            f"not equal to the live ones: {bad or 'none'}")
+        if bad:
+            raise AssertionError(f"export ({name}): {len(bad)} loaded tensors off the "
+                                 "card or not equal to the live ones")
+        live_fn = kex.make_serving_fn(net, hands, cfg)
+        reset_launches()
+        torch.cuda.synchronize()
+        outs = [loaded(*r) for r in requests]
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        check_launches(f"export ({name})", launches[name], per_request, REQUESTS)
+        with torch.inference_mode():
+            for j, r in enumerate(requests):
+                want_out = live_fn(*r)
+                for k, v in want_out.items():
+                    if not torch.equal(outs[j][k], v):
+                        raise AssertionError(f"export ({name}): request {j} {k} is not "
+                                             "bitwise equal to the live function's")
+        flip = torch.Generator(device=dev).manual_seed(3)
+
+        def request_of(fn):
+            def one():
+                e, v, u = requests[0]
+                f = torch.rand((B, 1), generator=flip, device=dev) < 0.5
+                p = e[..., 3]
+                ev = torch.cat([e[..., :3], torch.where(f, 1.0 - p, p)[..., None]], -1)
+                return fn(ev, v, u)
+            return one
+
+        with torch.inference_mode():
+            ms = {"live": cuda_ms(torch, request_of(live_fn), 10),
+                  "loaded": cuda_ms(torch, request_of(loaded), 10)}
+        wps = {k: B / (v / 1e3) for k, v in ms.items()}
+        log(f"export ({name}): all {REQUESTS} requests bitwise equal to the live "
+            f"function; loaded {ms['loaded']:.3f} ms a request, {wps['loaded']:.2f} "
+            f"windows/s; live {ms['live']:.3f} ms, {wps['live']:.2f} windows/s (B={B}, "
+            f"{EXPORT_EVENTS} events a window)")
+        numbers[name] = dict(export_s=export_s, save_s=save_s, load_s=load_s,
+                             bytes=os.path.getsize(path), nodes=n_nodes,
+                             loaded_windows_per_s=wps["loaded"],
+                             live_windows_per_s=wps["live"])
+        del program, loaded_program, loaded, net
+    total = {k: sum(l[k] for l in launches.values()) for k in launches["default"]}
+    return total, numbers
+
+
+class FrameSink:
+    """An in-memory video writer: keeps every frame."""
+
+    def __init__(self):
+        self.frames = []
+
+    def write(self, frame):
+        self.frames.append(frame)
+
+
+def pixel_tolerance(np, verts_m, cfg, tol_m=VERTEX_TOL):
+    """A first-order bound on how far a vertex moved by ``tol_m`` in each
+    coordinate moves its projected pixel: ``0.5 * size * p * tol * (1 / |z|
+    + (|x| + |y|) / z^2)``, ``p`` the projection's focal term, in mm."""
+    v = np.asarray(verts_m, np.float64).reshape(-1, 3) * 1e3
+    p = cfg.camera.projection_matrix(cfg.sensor.width, cfg.sensor.height)
+    scale = 0.5 * max(cfg.sensor.width * p[0, 0], cfg.sensor.height * p[1, 1])
+    z = np.abs(v[:, 2])
+    return float(np.max(scale * tol_m * 1e3 * (1 / z + (np.abs(v[:, 0]) + np.abs(v[:, 1]))
+                                               / z ** 2)))
+
+
+def demo_phase(torch, np, dev, state, tmp):
+    """Phase 17: run_demo on a synthetic recording with each mesh pane into
+    an in-memory sink, counted; then the tail batch's real windows through
+    the demo step on the card and on the CPU. -> (launches, numbers)."""
+    from ev2hands_tpu_torch import demo as kdemo
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.events.real_streams import (
+        RealStream,
+        sliding_window_batches,
+        write_synthetic_ev2hands_r,
+    )
+    from ev2hands_tpu_torch.model.tehnet import TEHNet
+
+    cfg = DEFAULT_CONFIG.replace(model=ModelConfig(n_points=N))
+    W, H = cfg.sensor.width, cfg.sensor.height
+    rec = write_synthetic_ev2hands_r(os.path.join(tmp, "demo", "subject.pickle"))
+    weights = at_depth(state)
+    pth = os.path.join(tmp, "demo_weights.pth")
+    torch.save(weights, pth)
+    n_batches = -(-DEMO_WINDOWS // DEMO_B)
+    launches, numbers = {}, {}
+    for pane in ("splat", "device"):
+        sink = FrameSink()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = kdemo.run_demo(rec, sink, pth, DEMO_B, DEMO_WINDOWS, synthetic_mano=True,
+                                mesh_render=pane, cfg=cfg, device=dev)
+        wall_s = time.perf_counter() - t0
+        launches[pane] = read_launches()
+        check_launches(f"demo ({pane})", launches[pane], EVAL_PER_BATCH, n_batches)
+        if report["frames"] != DEMO_WINDOWS or len(sink.frames) != DEMO_WINDOWS:
+            raise AssertionError(f"demo ({pane}): {len(sink.frames)} frames, want "
+                                 f"{DEMO_WINDOWS}")
+        if any(f.shape != (H, 3 * W, 3) or f.dtype != np.uint8 for f in sink.frames):
+            raise AssertionError(f"demo ({pane}): a frame is not [{H}, {3 * W}, 3] uint8")
+        lit = float(np.mean([(f[:, 2 * W:] > 0).any(-1).mean() for f in sink.frames]))
+        log(f"demo ({pane}): {report['frames']} frames of {H}x{3 * W} in {wall_s:.2f} s "
+            f"({n_batches} batches of {DEMO_B}, the tail partial); inference "
+            f"{report['inference_windows_per_s']:.2f} windows/s, steady state "
+            f"{report['steady_state_windows_per_s']:.2f} windows/s over "
+            f"{report['steady_state_windows']} windows; mesh pane lit on "
+            f"{100 * lit:.2f}% of its pixels; launches {launches[pane]}")
+        numbers[pane] = dict(report, wall_s=wall_s, mesh_pane_lit=lit)
+        del sink
+
+    # the tail batch's real windows, card against CPU, the same uniforms
+    tail = list(sliding_window_batches(RealStream(rec, W, H), DEMO_B, DEMO_WINDOWS,
+                                       with_gt=False))[-1]
+    k = tail["n_valid"]
+    inputs = (torch.from_numpy(tail["events"][:k]), torch.from_numpy(tail["event_valid"][:k]),
+              torch.rand((k, N), generator=torch.Generator().manual_seed(11),
+                         dtype=torch.float64))
+    outs = {}
+    for device in (dev, "cpu"):
+        net = TEHNet(cfg.model, device=device)
+        net.load_state_dict(weights, strict=True)
+        step = kdemo.make_demo_step(net.eval(), ktrain.build_hands(cfg, synthetic=True,
+                                                                  device=device),
+                                    cfg, "device")
+        t0 = time.perf_counter()
+        outs[str(device)] = {key: v.cpu().numpy() for key, v in step(*inputs).items()}
+        log(f"demo step on {device} ({k} windows, device pane) in "
+            f"{time.perf_counter() - t0:.2f} s")
+    card, cpu = outs[str(dev)], outs["cpu"]
+    for key in ("xy", "polarity", "seg"):
+        if not np.array_equal(card[key], cpu[key]):
+            raise AssertionError(f"demo card vs CPU: {key} is not bitwise equal")
+    report = {}
+    for side in ("left", "right"):
+        vdiff = float(np.abs(card[f"verts_{side}"] - cpu[f"verts_{side}"]).max())
+        tol = pixel_tolerance(np, cpu[f"verts_{side}"], cfg)
+        pdiff = float(np.abs(card[f"px_{side}"] - cpu[f"px_{side}"]).max())
+        report[side] = (vdiff, pdiff, tol)
+        if not (vdiff <= VERTEX_TOL and pdiff <= tol):
+            raise AssertionError(f"demo card vs CPU: {side} vertices {vdiff} m (limit "
+                                 f"{VERTEX_TOL}), pixels {pdiff} (limit {tol})")
+    covered = int((cpu["mesh_cls"] > 0).sum())
+    differ = int((card["mesh_cls"] != cpu["mesh_cls"]).sum())
+    same = card["mesh_cls"] == cpu["mesh_cls"]
+    shade = float(np.abs(card["mesh_shade"][same] - cpu["mesh_shade"][same]).max())
+    log("demo card vs CPU (tail batch, %d windows): xy, polarity and seg bitwise; "
+        % k + "; ".join(f"{s} vertices {v:.3g} m, pixels {p:.3g} (limit {t:.3g}, the "
+                        f"{VERTEX_TOL} m gate projected)" for s, (v, p, t) in report.items())
+        + f"; mesh_cls differs on {differ} of {covered} covered pixels (edge pixels "
+          f"whose centre the two sides' vertices put on either side of a triangle "
+          f"edge), shading {shade:.3g} where it agrees")
+    if covered < 100 or differ > 0.01 * covered or not shade <= 1e-4:
+        raise AssertionError(f"demo card vs CPU: mesh pane {differ} of {covered} "
+                             f"pixels differ (limit 1%), shading {shade}")
+    numbers["card_vs_cpu"] = dict(mesh_cls_differ=differ, mesh_covered=covered,
+                                  **{f"{s}_px_diff": p for s, (_, p, _) in report.items()})
+    total = {key: sum(l[key] for l in launches.values()) for key in launches["splat"]}
+    return total, numbers
+
+
+def four_channel_phase(torch, np, dev):
+    """Phase 18: raw_window_transform -> TEHNet(erpc=False) -> MANO at B=16,
+    N=2048, counted, timed, and 2 windows against the CPU.
+    -> (launches, windows/s)."""
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.events.erpc import raw_window_transform
+    from ev2hands_tpu_torch.model.tehnet import TEHNet, apply_mano
+    from ev2hands_tpu_torch.weights import init_weights
+
+    cfg = DEFAULT_CONFIG.replace(model=ModelConfig(n_points=N, erpc=False))
+    state = init_weights(torch.Generator().manual_seed(3), cfg.model)
+    nets, hands = {}, {}
+    for device in (dev, "cpu"):
+        nets[str(device)] = TEHNet(cfg.model, device=device)
+        nets[str(device)].load_state_dict(state, strict=True)
+        nets[str(device)].eval()
+        hands[str(device)] = ktrain.build_hands(cfg, synthetic=True, device=device)
+
+    def forward(device, raw, lab, uniforms):
+        c = cfg.sensor
+        win = raw_window_transform(raw.to(device), lab.to(device), uniforms=uniforms,
+                                   width=c.width, height=c.height, n_out=N)
+        return apply_mano(hands[str(device)], nets[str(device)](win.events))
+
+    reqs = [raw_request(np, 50 + j) for j in range(REQUESTS)]
+    reqs = [(torch.from_numpy(r).to(dev), torch.from_numpy(lab).to(dev),
+             torch.rand((B, N), generator=torch.Generator().manual_seed(60 + j),
+                        dtype=torch.float64).to(dev)) for j, (r, lab) in enumerate(reqs)]
+    with torch.inference_mode():
+        reset_launches()
+        torch.cuda.synchronize()
+        outs = [forward(dev, *r) for r in reqs]
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check_launches("4-channel", launches, EVAL_PER_BATCH, REQUESTS)
+        for out in outs:
+            if not all(torch.isfinite(out[s]["vertices"]).all() for s in ("left", "right")) \
+                    or not torch.isfinite(out["class_logits"]).all():
+                raise AssertionError("4-channel output is not finite")
+        ms = cuda_ms(torch, lambda: forward(dev, *reqs[1]), 10)
+        wps = B / (ms / 1e3)
+        t0 = time.perf_counter()
+        ref = forward("cpu", *(t[:2].cpu() for t in reqs[0]))
+        cpu_s = time.perf_counter() - t0
+    got = outs[0]
+    diffs = {"class_logits": (got["class_logits"][:2].cpu() - ref["class_logits"]).abs().max().item()}
+    for side in ("left", "right"):
+        for key in ("global_orient", "hand_pose", "betas", "transl", "vertices", "j3d"):
+            diffs[f"{side}_{key}"] = (got[side][key][:2].cpu() - ref[side][key]).abs().max().item()
+    limits = {k: VERTEX_TOL if k.endswith(("vertices", "j3d")) else 1e-3 for k in diffs}
+    log(f"4-channel: {REQUESTS} requests of {B} windows, launches {launches}; "
+        f"{ms:.3f} ms a request, {wps:.2f} windows/s; card vs CPU (2 windows, CPU run "
+        f"{cpu_s:.1f} s): " + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items()))
+    for k, v in diffs.items():
+        if not v <= limits[k]:
+            raise AssertionError(f"4-channel card vs CPU: {k} differs by {v} > {limits[k]}")
+    return launches, wps
+
+
+class _Ch:
+    """Stands in for chumpy's Ch in the MANO pickles that phase 19 writes."""
+
+    def __init__(self, x):
+        self.x = x
+
+
+def write_official_mano(np, root, models):
+    """{root}/mano/MANO_{LEFT,RIGHT}.pkl in the official layout: v_template
+    and shapedirs as chumpy objects, J_regressor as a scipy sparse matrix,
+    faces uint32 as 'f', the rest numpy."""
+    import pickle
+    import types
+
+    import scipy.sparse
+
+    _Ch.__module__, _Ch.__qualname__ = "chumpy.ch", "Ch"
+    mod = types.ModuleType("chumpy.ch")
+    mod.Ch = _Ch
+    saved = {k: sys.modules.get(k) for k in ("chumpy", "chumpy.ch")}
+    sys.modules["chumpy"], sys.modules["chumpy.ch"] = types.ModuleType("chumpy"), mod
+    try:
+        os.makedirs(os.path.join(root, "mano"), exist_ok=True)
+        for side, m in models.items():
+            data = {"v_template": _Ch(m.v_template.astype(np.float64)),
+                    "shapedirs": _Ch(m.shapedirs.astype(np.float64)),
+                    "posedirs": m.posedirs.astype(np.float64),
+                    "J_regressor": scipy.sparse.csc_matrix(m.J_regressor.astype(np.float64)),
+                    "weights": m.lbs_weights.astype(np.float64),
+                    "hands_components": m.hands_components.astype(np.float64),
+                    "hands_mean": m.hands_mean.astype(np.float64),
+                    "f": m.faces.astype(np.uint32)}
+            with open(os.path.join(root, "mano", f"MANO_{side.upper()}.pkl"), "wb") as f:
+                pickle.dump(data, f, protocol=2)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def mano_loader_phase(torch, np, dev, state, tmp, raw0, lab0, draws0):
+    """Phase 19: official-layout MANO pickles written from the synthetic
+    models, loaded; one serving request with those hands bitwise equal to
+    one with the synthetic models (the left-hand shapedirs fix applied, as
+    the loader applies it: the synthetic hands share their shapedirs)."""
+    import dataclasses
+
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.mano.layer import create_mano_params
+    from ev2hands_tpu_torch.mano.model_data import (
+        apply_shapedirs_fix,
+        load_mano_models,
+        synthetic_mano_models,
+    )
+    from ev2hands_tpu_torch.serve import InferencePipeline
+
+    root = os.path.join(tmp, "mano_assets")
+    write_official_mano(np, root, synthetic_mano_models(0))
+    expected = synthetic_mano_models(0)
+    if not apply_shapedirs_fix(expected["left"], expected["right"]):
+        raise AssertionError("mano loader: the synthetic hands should need the fix")
+    cfg = DEFAULT_CONFIG.replace(
+        mano=dataclasses.replace(DEFAULT_CONFIG.mano, model_path=root),
+        model=ModelConfig(n_points=N))
+    hands = ktrain.build_hands(cfg, synthetic=False, device=dev)   # reads model_path
+    outs = {}
+    with torch.inference_mode():
+        for name, models in (("loaded", load_mano_models(root)), ("synthetic", expected)):
+            pipe = InferencePipeline(cfg, state, models, device=dev)
+            outs[name] = pipe(torch.from_numpy(raw0), torch.from_numpy(lab0), draws=draws0)
+    for side in ("left", "right"):
+        for a, b in zip(hands[side], create_mano_params(expected[side], device=dev)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"mano loader: build_hands' {side} hand differs")
+    for k, v in outs["loaded"].items():
+        if not torch.equal(v, outs["synthetic"][k]):
+            raise AssertionError(f"mano loader: {k} differs from the synthetic hands'")
+    log(f"mano loader: MANO_{{LEFT,RIGHT}}.pkl (chumpy objects, a scipy sparse "
+        f"J_regressor) loaded; one serving request of {B} windows with the loaded "
+        f"hands bitwise equal to the synthetic models' (left-hand fix applied) in all "
+        f"{len(outs['loaded'])} outputs")
 
 
 def main() -> int:
@@ -1735,7 +2165,22 @@ def main() -> int:
     loop_launches = training_loop_phase(torch, np, dev, state)
     ft_launches = finetune_phase(torch, np, dev, state)
 
-    # 16. the kernels line. ms, plain_ms, bound_ms and library_ms add the
+    # 16-19. serving export, the demo, the 4-channel input, the MANO loader
+    from ev2hands_tpu_torch.utils.device import get_device_memory_usage
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_demo_")
+    try:
+        export_launches, export_numbers = export_phase(torch, np, dev, state, tmp)
+        demo_launches, demo_numbers = demo_phase(torch, np, dev, state, tmp)
+        four_launches, four_wps = four_channel_phase(torch, np, dev)
+        mano_loader_phase(torch, np, dev, state, tmp, raw0, lab0, draws0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("export, demo, 4-channel: " + json.dumps({"export": export_numbers, "demo": demo_numbers,
+                                  "four_channel_windows_per_s": four_wps}))
+    log("device memory: " + json.dumps(get_device_memory_usage()))
+
+    # 20. the kernels line. ms, plain_ms, bound_ms and library_ms add the
     # calls of one pass: the three serving FPS shapes and sa1 scales of a
     # forward, the fused sa1 call of an evaluation forward, the four gathers
     # and three scatter-adds of a training step, a dense op's three sa1
@@ -1743,10 +2188,13 @@ def main() -> int:
     # scatter-add. launches: every driven path (serving's 4 requests, training's
     # 4 steps, the evaluations' 8 + 3 batches, phase 4c's ops, the training
     # loop's 6 steps and 4 evaluation batches, finetuning's 4 steps and 4
-    # evaluation batches), also listed by path.
+    # evaluation batches, the loaded exports' 4 + 4 requests, the demo's 7 +
+    # 7 batches, the 4-channel forward's 4 requests), also listed by path.
     by_path = {"serving": launches, "training": train_launches,
                "evaluation": eval_launches, "ops": ops_launches,
-               "training_loop": loop_launches, "finetune": ft_launches}
+               "training_loop": loop_launches, "finetune": ft_launches,
+               "export": export_launches, "demo": demo_launches,
+               "four_channel": four_launches}
 
     def entry(name, source, replaces, rows, err, library=False):
         return {

@@ -24,9 +24,12 @@ class SensorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ManoConfig:
-    """MANO hand-model hyperparameters read by training."""
+    """MANO hand-model hyperparameters read by training and the entry
+    points."""
 
     n_pose_comps: int = 6        # PCA pose components fed to the network
+    # the directory of MANO_{LEFT,RIGHT}.pkl (or of mano/MANO_*.pkl)
+    model_path: str = "data/models"
 
 
 @dataclasses.dataclass(frozen=True)

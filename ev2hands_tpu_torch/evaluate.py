@@ -10,7 +10,7 @@ reference's ``.pth`` checkpoints and the port's own checkpoint directories
 and are not read.
 
     python -m ev2hands_tpu_torch.evaluate --checkpoint_path best.pth \\
-        --data_root data/Ev2Hands-S --synthetic_mano
+        --data_root data/Ev2Hands-S [--mano_dir data/models | --synthetic_mano]
 """
 
 from __future__ import annotations
@@ -162,16 +162,6 @@ def load_net(cfg: Config, checkpoint_path: str, device) -> TEHNet:
     return net.eval()
 
 
-def build_eval_hands(cfg: Config, synthetic_mano: bool, device):
-    """Both hands' MANO constants; the port has only the synthetic models."""
-    if not synthetic_mano:
-        raise NotImplementedError(
-            "the port reads no MANO pickles yet: pass --synthetic_mano")
-    from ev2hands_tpu_torch.train import build_hands
-
-    return build_hands(cfg, device=device)
-
-
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description="Evaluate on Ev2Hands-S test")
     ap.add_argument("--data_root", default=DEFAULT_CONFIG.train.data_root)
@@ -185,13 +175,16 @@ def main(argv=None) -> Dict:
     ap.add_argument("--stride", type=int, default=1,
                     help="window-start stride with --full_split")
     ap.add_argument("--out_dir", default="outputs")
-    ap.add_argument("--synthetic_mano", action="store_true")
+    from ev2hands_tpu_torch.train import add_mano_args, build_hands
+
+    add_mano_args(ap)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    cfg = EVAL_CONFIG.replace(train=dataclasses.replace(
-        EVAL_CONFIG.train, eval_batch_size=args.batch_size))
-    hands = build_eval_hands(cfg, args.synthetic_mano, args.device)
+    cfg = EVAL_CONFIG.replace(
+        mano=dataclasses.replace(EVAL_CONFIG.mano, model_path=args.mano_dir),
+        train=dataclasses.replace(EVAL_CONFIG.train, eval_batch_size=args.batch_size))
+    hands = build_hands(cfg, args.synthetic_mano, args.device)
     net = load_net(cfg, args.checkpoint_path, args.device)
     reader = Ev2HandSReader(f"{args.data_root}/{args.split}", cfg.model.n_points)
     report = evaluate_dataset(net, hands, reader, cfg, args.max_frames,

@@ -10,12 +10,13 @@ configuration (``evaluate.EVAL_CONFIG``); host windowing runs in a
 background thread (``Prefetcher``) beside the device's work.
 
     python -m ev2hands_tpu_torch.evaluate_real --data_root recordings/ \\
-        --checkpoint_path best.pth --synthetic_mano
+        --checkpoint_path best.pth [--mano_dir data/models | --synthetic_mano]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import pickle
@@ -119,8 +120,8 @@ def evaluate_recording(
 
 
 def main(argv=None) -> Dict:
-    from ev2hands_tpu_torch.evaluate import EVAL_CONFIG, build_eval_hands, load_net
-    from ev2hands_tpu_torch.train import build_collision_context
+    from ev2hands_tpu_torch.evaluate import EVAL_CONFIG, load_net
+    from ev2hands_tpu_torch.train import add_mano_args, build_collision_context, build_hands
 
     ap = argparse.ArgumentParser(description="Evaluate on Ev2Hands-R recordings")
     ap.add_argument("--data_root", required=True,
@@ -130,12 +131,13 @@ def main(argv=None) -> Dict:
     ap.add_argument("--batch_size", type=int, default=32)
     ap.add_argument("--max_windows", type=int, default=None)
     ap.add_argument("--out_dir", default="outputs/ev2hands_r")
-    ap.add_argument("--synthetic_mano", action="store_true")
+    add_mano_args(ap)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    cfg = EVAL_CONFIG
-    hands = build_eval_hands(cfg, args.synthetic_mano, args.device)
+    cfg = EVAL_CONFIG.replace(
+        mano=dataclasses.replace(EVAL_CONFIG.mano, model_path=args.mano_dir))
+    hands = build_hands(cfg, args.synthetic_mano, args.device)
     ctx = build_collision_context(hands)
     net = load_net(cfg, args.checkpoint_path, args.device)
     eval_step = make_real_eval_step(net, hands, ctx, cfg, args.device)

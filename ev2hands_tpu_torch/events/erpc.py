@@ -9,7 +9,9 @@ min/max; the counts stay raw). A pixel's label is the largest label of its
 events. Every random draw comes from a ``torch.Generator`` or is given, so
 a test can hand the port the JAX package's draws. Real recordings
 (``erpc_real_batch_transform``) come as padded windows with a validity
-mask, timestamps in ms and no labels.
+mask, timestamps in ms and no labels. ``erpc_preraster_batch_transform``
+takes rows already rasterised, and ``raw_window_transform`` is the
+4-channel input of ``ModelConfig(erpc=False)``, with no rasterisation.
 
 Device independence: the per-pixel time sum is taken in float64, exact for
 float32 inputs, and rounded once, so the CPU and the card give the same
@@ -130,7 +132,8 @@ def sample_fixed(
 
 def normalize_erpc(feats: torch.Tensor, width: int, height: int) -> torch.Tensor:
     """x, y -> [-1, 1] by sensor size; t -> [-1, 1] by the window's min/max;
-    the polarity counts stay raw. feats [B, n, 5].
+    the other columns (the ERPC polarity counts, or a raw event's polarity)
+    stay raw. feats [B, n, C], C >= 3.
 
     The sensor size is divided as a tensor: PyTorch's CUDA division by a
     Python scalar multiplies by the reciprocal, one ulp off the CPU's true
@@ -141,18 +144,46 @@ def normalize_erpc(feats: torch.Tensor, width: int, height: int) -> torch.Tensor
     t_min = torch.amin(t, dim=-1, keepdim=True)
     t_max = torch.amax(t, dim=-1, keepdim=True)
     t = 2.0 * (t - t_min) / torch.clamp(t_max - t_min, min=1e-9) - 1.0
-    return torch.stack([x, y, t, feats[..., 3], feats[..., 4]], dim=-1)
+    return torch.cat([torch.stack([x, y, t], dim=-1), feats[..., 3:]], dim=-1)
+
+
+def draws_from_uniforms(uniforms: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """[B, n_out] float64 uniforms in [0, 1) -> [B, n_out] resample indices
+    in [0, max(n_valid, 1)), on ``n_valid``'s device: ``floor(u * total)``,
+    clamped below ``total``."""
+    total = torch.clamp(n_valid.long(), min=1)[:, None]
+    r = (uniforms.to(total.device) * total).long()
+    return torch.minimum(r, total - 1)
 
 
 def resample_draws(n_valid: torch.Tensor, n_out: int,
                    generator: torch.Generator) -> torch.Tensor:
     """[B, n_out] uniform draws in [0, max(n_valid, 1)) from ``generator``
-    (on its own device), returned on ``n_valid``'s device."""
-    total = torch.clamp(n_valid.long(), min=1)[:, None]
+    (on its own device), returned on ``n_valid``'s device:
+    ``draws_from_uniforms`` of the generator's float64 uniforms."""
     u = torch.rand((n_valid.shape[0], n_out), generator=generator,
                    device=generator.device, dtype=torch.float64)
-    r = (u.to(total.device) * total).long()
-    return torch.minimum(r, total - 1)
+    return draws_from_uniforms(u, n_valid)
+
+
+def _resample_indices(total: torch.Tensor, n_out: int,
+                      generator: Optional[torch.Generator],
+                      draws: Optional[torch.Tensor],
+                      uniforms: Optional[torch.Tensor], what: str) -> torch.Tensor:
+    """The resample indices over ``total`` [B] rows: ``draws`` as given,
+    else from ``uniforms``, else from ``generator``; on ``total``'s
+    device."""
+    if draws is None:
+        if uniforms is not None:
+            draws = draws_from_uniforms(uniforms, total)
+        elif generator is not None:
+            draws = resample_draws(total, n_out, generator)
+        else:
+            raise ValueError(f"{what}: pass a generator, uniforms or draws")
+    B = total.shape[0]
+    if tuple(draws.shape) != (B, n_out):
+        raise ValueError(f"draws must be [{B}, {n_out}], got {tuple(draws.shape)}")
+    return draws.to(total.device)
 
 
 class NoiseDraws(NamedTuple):
@@ -222,6 +253,68 @@ def append_noise(feats: torch.Tensor, labels: torch.Tensor,
             torch.cat([labels, noise_labels], dim=1), count)
 
 
+def erpc_preraster_batch_transform(
+    feats: torch.Tensor,     # [B, P, 5] ERPC rows: x, y, t in ms, #pos, #neg
+    labels: torch.Tensor,    # [B, P] int per-row class labels
+    n_valid: torch.Tensor,   # [B] real rows (the rest is padding)
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[torch.Tensor] = None,
+    width: int = 346,
+    height: int = 260,
+    n_out: int = 2048,
+    augment: bool = False,
+    noise: Optional[NoiseDraws] = None,
+    uniforms: Optional[torch.Tensor] = None,
+) -> ErpcWindow:
+    """ERPC rows already rasterised (the reference's pre-rasterised dataset
+    format) -> normalised clouds [B, n_out, 5]: the noise augmentation, the
+    fixed-size resample and the normalisation of ``erpc_batch_transform``.
+
+    ``augment`` appends the noise rows of ``noise`` (or of draws from
+    ``generator``) to windows whose gate fires. The resample over the valid
+    rows and the active noise rows takes ``draws`` [B, n_out] (ints in
+    [0, max(n_valid + noise_count, 1)), e.g. the JAX package's ``randint``
+    draws), or ``uniforms`` [B, n_out] float64 in [0, 1) through
+    ``draws_from_uniforms``, or draws from ``generator``."""
+    B, P, _ = feats.shape
+    n_noise = n_out // 32
+    if augment:
+        if noise is None:
+            if generator is None:
+                raise ValueError("erpc transform: pass a generator or noise draws")
+            noise = noise_draws(n_valid, n_noise, width, height, generator)
+        noise = NoiseDraws(*(t.to(feats.device) for t in noise))
+        if tuple(noise.xs.shape) != (B, n_noise):
+            raise ValueError(f"noise draws must be [{B}, {n_noise}]")
+        feats, labels, noise_count = append_noise(feats, labels, noise)
+    else:
+        # the augmentation's noise rows are present but inactive, as in JAX
+        feats = torch.cat([feats, feats.new_zeros(B, n_noise, 5)], dim=1)
+        labels = torch.cat([labels, labels.new_zeros(B, n_noise)], dim=1)
+        noise_count = torch.zeros_like(n_valid)
+    draws = _resample_indices(n_valid + noise_count, n_out, generator, draws,
+                              uniforms, "erpc transform")
+    sampled, sampled_labels = sample_fixed(feats, labels, n_valid, P, draws)
+    return ErpcWindow(events=normalize_erpc(sampled, width, height),
+                      labels=sampled_labels)
+
+
+def erpc_preraster_window_transform(
+    feats: torch.Tensor, labels: torch.Tensor, n_valid, **kwargs
+) -> ErpcWindow:
+    """One pre-rasterised window (feats [P, 5], labels [P], n_valid a
+    scalar) through ``erpc_preraster_batch_transform`` -> [n_out, 5]; draws,
+    uniforms and noise draws given for the window carry no batch axis."""
+    for key in ("draws", "uniforms"):
+        if kwargs.get(key) is not None:
+            kwargs[key] = kwargs[key][None]
+    if kwargs.get("noise") is not None:
+        kwargs["noise"] = NoiseDraws(*(t[None] for t in kwargs["noise"]))
+    out = erpc_preraster_batch_transform(
+        feats[None], labels[None], torch.as_tensor(n_valid).reshape(1), **kwargs)
+    return ErpcWindow(events=out.events[0], labels=out.labels[0])
+
+
 def erpc_batch_transform(
     events: torch.Tensor,   # [B, N, 4] raw windows: x, y, t, p
     labels: torch.Tensor,   # [B, N] int
@@ -235,44 +328,17 @@ def erpc_batch_transform(
     noise: Optional[NoiseDraws] = None,
     event_valid: Optional[torch.Tensor] = None,
     max_pixels: Optional[int] = None,
+    uniforms: Optional[torch.Tensor] = None,
 ) -> ErpcWindow:
-    """Raw windows -> normalised ERPC clouds [B, n_out, 5].
-
-    ``augment`` appends the noise rows of ``noise`` (or of draws from
-    ``generator``) to windows whose gate fires. The resample over the valid
-    pixel rows and the active noise rows takes either ``draws`` [B, n_out]
-    (ints in [0, max(n_valid + noise_count, 1)), e.g. the JAX package's
-    ``randint`` draws) or draws from ``generator``. ``event_valid`` and
-    ``max_pixels`` go to ``rasterize_erpc``."""
+    """Raw windows -> normalised ERPC clouds [B, n_out, 5]:
+    ``rasterize_erpc`` (``event_valid`` and ``max_pixels`` go there), then
+    ``erpc_preraster_batch_transform`` with the draws as it takes them."""
     feats, pix_labels, n_valid = rasterize_erpc(
         events, labels, width, height, time_scale=time_scale,
         event_valid=event_valid, max_pixels=max_pixels)
-    B, P, _ = feats.shape
-    n_noise = n_out // 32
-    if augment:
-        if noise is None:
-            if generator is None:
-                raise ValueError("erpc_batch_transform: pass a generator or noise draws")
-            noise = noise_draws(n_valid, n_noise, width, height, generator)
-        noise = NoiseDraws(*(t.to(events.device) for t in noise))
-        if tuple(noise.xs.shape) != (B, n_noise):
-            raise ValueError(f"noise draws must be [{B}, {n_noise}]")
-        feats, pix_labels, noise_count = append_noise(feats, pix_labels, noise)
-    else:
-        # the augmentation's noise rows are present but inactive, as in JAX
-        feats = torch.cat([feats, feats.new_zeros(B, n_noise, 5)], dim=1)
-        pix_labels = torch.cat([pix_labels, pix_labels.new_zeros(B, n_noise)], dim=1)
-        noise_count = torch.zeros_like(n_valid)
-    if draws is None:
-        if generator is None:
-            raise ValueError("erpc_batch_transform: pass a generator or draws")
-        draws = resample_draws(n_valid + noise_count, n_out, generator)
-    if tuple(draws.shape) != (B, n_out):
-        raise ValueError(f"draws must be [{B}, {n_out}], got {tuple(draws.shape)}")
-    sampled, sampled_labels = sample_fixed(
-        feats, pix_labels, n_valid, P, draws.to(events.device))
-    return ErpcWindow(events=normalize_erpc(sampled, width, height),
-                      labels=sampled_labels)
+    return erpc_preraster_batch_transform(
+        feats, pix_labels, n_valid, generator, draws, width, height, n_out,
+        augment, noise, uniforms)
 
 
 def erpc_real_batch_transform(
@@ -284,6 +350,7 @@ def erpc_real_batch_transform(
     height: int = 260,
     n_out: int = 2048,
     max_pixels: Optional[int] = None,
+    uniforms: Optional[torch.Tensor] = None,
 ) -> ErpcWindow:
     """Real-data transform: masked variable-length windows with millisecond
     timestamps, no labels and no augmentation. ``max_pixels`` bounds the
@@ -294,4 +361,56 @@ def erpc_real_batch_transform(
     labels = torch.zeros((B, N), dtype=torch.int32, device=events.device)
     return erpc_batch_transform(
         events, labels, generator, draws=draws, width=width, height=height,
-        n_out=n_out, time_scale=1.0, event_valid=event_valid, max_pixels=mp)
+        n_out=n_out, time_scale=1.0, event_valid=event_valid, max_pixels=mp,
+        uniforms=uniforms)
+
+
+def raw_window_transform(
+    events: torch.Tensor,   # [B, N, 4] raw windows: x, y, t, p
+    labels: torch.Tensor,   # [B, N] int
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[torch.Tensor] = None,
+    width: int = 346,
+    height: int = 260,
+    n_out: int = 2048,
+    augment: bool = False,
+    noise: Optional[NoiseDraws] = None,
+    uniforms: Optional[torch.Tensor] = None,
+) -> ErpcWindow:
+    """The 4-channel input of ``ModelConfig(erpc=False)``: no
+    rasterisation. Each window's raw (x, y, t, p) events are resampled with
+    replacement to ``n_out`` rows, x and y normalised by the sensor size, t
+    by the window's min/max, the polarity left raw -> [B, n_out, 4].
+
+    ``augment`` appends ``n_out // 32`` noise events labelled 3 to windows
+    whose gate fires (``noise``, or draws from ``generator``): a random
+    pixel, the t of a random event of the window plus U[0, 1) * 1e3, and
+    polarity ``ps``; ``noise.n_pe`` and ``noise.n_ne`` are not read. The
+    resample over the N events and the active noise rows takes ``draws``
+    (ints in [0, N + noise_count)), ``uniforms`` or draws from
+    ``generator``, as ``erpc_preraster_batch_transform`` does."""
+    B, N, _ = events.shape
+    full = torch.full((B,), N, dtype=torch.int32, device=events.device)
+    count = torch.zeros_like(full)
+    if augment:
+        n_noise = n_out // 32
+        if noise is None:
+            if generator is None:
+                raise ValueError("raw_window_transform: pass a generator or noise draws")
+            noise = noise_draws(full, n_noise, width, height, generator)
+        noise = NoiseDraws(*(t.to(events.device) for t in noise))
+        if tuple(noise.xs.shape) != (B, n_noise):
+            raise ValueError(f"noise draws must be [{B}, {n_noise}]")
+        ts = torch.gather(events[..., 2], 1, noise.src.long()) + noise.t * 1e3
+        rows = torch.stack([noise.xs.to(events.dtype), noise.ys.to(events.dtype),
+                            ts, noise.ps.to(events.dtype)], dim=-1)
+        gate = noise.gate
+        events = torch.cat([events, torch.where(gate[:, None, None], rows, 0.0)], 1)
+        labels = torch.cat([labels, torch.where(gate[:, None], 3, 0).to(
+            labels.dtype).expand(-1, n_noise)], 1)
+        count = torch.where(gate, n_noise, 0).to(torch.int32)
+    draws = _resample_indices(full + count, n_out, generator, draws, uniforms,
+                              "raw_window_transform").long()
+    sampled = torch.gather(events, 1, draws[..., None].expand(-1, -1, 4))
+    return ErpcWindow(events=normalize_erpc(sampled, width, height),
+                      labels=torch.gather(labels, 1, draws))

@@ -11,7 +11,8 @@ evaluation every ``save_iter`` steps, a checkpoint on a new best score, and
 resume. It runs on the card unless asked for the CPU.
 
     python -m ev2hands_tpu_torch.finetune --data_root recordings/ \\
-        --val_data_root held_out/ --checkpoint_path best.pth --synthetic_mano
+        --val_data_root held_out/ --checkpoint_path best.pth \\
+        [--mano_dir data/models | --synthetic_mano]
 
 Step ``it`` draws from ``train.seeded_generator(seed + 2, it)``, the
 evaluation's batch ``i`` from ``seeded_generator(0, i)``.
@@ -36,6 +37,7 @@ from ev2hands_tpu_torch.metrics import PckAccumulator
 from ev2hands_tpu_torch.model.tehnet import TEHNet, apply_mano
 from ev2hands_tpu_torch.train import (
     TrainRun,
+    add_mano_args,
     check_device,
     run_loop,
     seeded_generator,
@@ -181,11 +183,12 @@ def main(argv=None) -> TrainRun:
                     default=DEFAULT_CONFIG.train.eval_batch_size)
     ap.add_argument("--n_points", type=int, default=DEFAULT_CONFIG.model.n_points)
     ap.add_argument("--msg_iter", type=int, default=DEFAULT_CONFIG.train.msg_iter)
-    ap.add_argument("--synthetic_mano", action="store_true")
+    add_mano_args(ap)
     ap.add_argument("--tensorboard", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = DEFAULT_CONFIG.replace(
+        mano=dataclasses.replace(DEFAULT_CONFIG.mano, model_path=args.mano_dir),
         model=dataclasses.replace(DEFAULT_CONFIG.model, n_points=args.n_points),
         train=dataclasses.replace(
             DEFAULT_CONFIG.train, batch_size=args.batch_size,

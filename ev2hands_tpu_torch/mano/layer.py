@@ -32,6 +32,8 @@ class ManoParams(NamedTuple):
     hands_mean: torch.Tensor    # [45]
     tip_ids: torch.Tensor       # [5] int64
     faces: torch.Tensor         # [F, 3] int64
+    parent_ids: torch.Tensor    # [15] int64: the parents of joints 1..15
+    joint_reorder: torch.Tensor  # [21] int64: 16 joints + 5 tips -> 21-joint order
 
 
 class ManoOutput(NamedTuple):
@@ -54,6 +56,8 @@ def create_mano_params(data: ManoModelData, n_pose_comps: int = 6,
         hands_mean=t(data.hands_mean),
         tip_ids=t(data.tip_vertex_ids, torch.long),
         faces=t(data.faces, torch.long),
+        parent_ids=t(KINTREE_PARENTS[1:], torch.long),
+        joint_reorder=t(JOINT_REORDER, torch.long),
     )
 
 
@@ -83,16 +87,18 @@ def quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:
 
 
 def _rigid_transform_chain(
-    rot_mats: torch.Tensor, joints: torch.Tensor
+    rot_mats: torch.Tensor, joints: torch.Tensor, parent_ids: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kinematics along the MANO tree.
 
     rot_mats [B, 16, 3, 3] local rotations (root first), joints [B, 16, 3]
-    rest joints -> (posed joints [B, 16, 3], skinning transforms
-    [B, 16, 4, 4] with the rest pose removed)."""
+    rest joints, parent_ids [15] the parents of joints 1..15 (on the
+    joints' device: an exported program keeps it there as a constant) ->
+    (posed joints [B, 16, 3], skinning transforms [B, 16, 4, 4] with the
+    rest pose removed)."""
     B = rot_mats.shape[0]
     parents = KINTREE_PARENTS
-    rel_pos = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, parents[1:]]],
+    rel_pos = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, parent_ids]],
                         dim=1)
     # built out of place, so autograd sees no write into a saved tensor
     bottom = rot_mats.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(B, 16, 1, 4)
@@ -137,15 +143,15 @@ def mano_forward(
     pose_feature = (rot_mats[:, 1:] - eye).reshape(B, -1)  # [B, 135]
     v_posed = v_shaped + (pose_feature @ params.posedirs.t()).reshape(B, V, 3)
 
-    joints, rel_transforms = _rigid_transform_chain(rot_mats, joints_rest)
+    joints, rel_transforms = _rigid_transform_chain(rot_mats, joints_rest,
+                                                    params.parent_ids)
 
     T = torch.einsum("vk,bkij->bvij", params.lbs_weights, rel_transforms)
     v_hom = torch.cat([v_posed, v_posed.new_ones(B, V, 1)], dim=-1)
     verts = torch.einsum("bvij,bvj->bvi", T, v_hom)[..., :3]
 
     tips = verts[:, params.tip_ids]
-    reorder = torch.as_tensor(JOINT_REORDER, device=verts.device)
-    joints21 = torch.cat([joints, tips], dim=1)[:, reorder]
+    joints21 = torch.cat([joints, tips], dim=1)[:, params.joint_reorder]
 
     verts = verts + tr[:, None]
     joints21 = joints21 + tr[:, None]

@@ -1,16 +1,23 @@
-"""MANO model data in numpy: constants, the ``ManoModelData`` container and
-the deterministic synthetic stand-in used where the licensed MANO pickles
-are absent.
+"""MANO model data in numpy: constants, the ``ManoModelData`` container,
+the loader of the official ``MANO_{LEFT,RIGHT}.pkl`` assets, and the
+deterministic synthetic stand-in used where those licensed pickles are
+absent.
 
 The port's own copy of ``ev2hands_tpu/mano/model_data.py`` (no import of
 the JAX package). ``synthetic_mano_models(seed)`` gives bit-identical arrays
-to the JAX package's for the same seed.
+to the JAX package's for the same seed, and ``load_mano_models`` the same
+arrays as its loader. The pickles hold chumpy objects and a scipy sparse
+joint regressor: the unpickler puts a stub in place of each chumpy class,
+so chumpy need not be installed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import io
+import os
+import pickle
+from typing import Any, Dict
 
 import numpy as np
 
@@ -65,6 +72,93 @@ class ManoModelData:
     @property
     def tip_vertex_ids(self) -> np.ndarray:
         return TIP_VERTEX_IDS_LEFT if self.side == "left" else TIP_VERTEX_IDS_RIGHT
+
+
+class _ChumpyStub:
+    """Stands in for a chumpy object of a MANO pickle; keeps its state."""
+
+    def __init__(self, *args, **kwargs):
+        self.__dict__.update(kwargs)
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+
+class _ManoUnpickler(pickle.Unpickler):
+    """Resolves chumpy classes to ``_ChumpyStub``, and scipy sparse classes
+    to scipy's own where scipy has them (else to the stub)."""
+
+    def find_class(self, module: str, name: str):
+        if module.startswith("scipy.sparse"):
+            try:
+                return super().find_class(module, name)
+            except (ImportError, AttributeError):
+                return _ChumpyStub
+        if module.startswith("chumpy"):
+            return _ChumpyStub
+        return super().find_class(module, name)
+
+
+def _to_array(v: Any) -> np.ndarray:
+    """A dense numpy array from a numpy array, a chumpy stub or a scipy
+    sparse matrix."""
+    if isinstance(v, np.ndarray):
+        return v
+    if hasattr(v, "toarray"):  # scipy sparse
+        return np.asarray(v.toarray())
+    if isinstance(v, _ChumpyStub):
+        d = v.__dict__
+        for key in ("x", "a", "v", "r"):
+            if key in d:
+                return _to_array(d[key])
+        raise ValueError(f"cannot extract an array from a chumpy object with keys {list(d)}")
+    return np.asarray(v)
+
+
+def load_mano_pkl(path: str, side: str) -> ManoModelData:
+    """One hand from an official MANO pickle, without chumpy."""
+    with open(path, "rb") as f:
+        data: Dict[str, Any] = _ManoUnpickler(io.BytesIO(f.read()),
+                                              encoding="latin1").load()
+    return ManoModelData(
+        side=side,
+        v_template=_to_array(data["v_template"]),
+        shapedirs=_to_array(data["shapedirs"])[:, :, :10],
+        posedirs=_to_array(data["posedirs"]).reshape(N_VERTICES, 3, N_POSE_BLENDSHAPES),
+        J_regressor=_to_array(data["J_regressor"]),
+        lbs_weights=_to_array(data["weights"]),
+        hands_components=_to_array(data["hands_components"]),
+        hands_mean=_to_array(data["hands_mean"]),
+        faces=_to_array(data["f"]).astype(np.int64),
+    )
+
+
+def apply_shapedirs_fix(left: ManoModelData, right: ManoModelData) -> bool:
+    """The released left-hand asset shares the right hand's first shapedirs
+    column instead of mirroring it (the reference's ``model/utils.py``
+    fix): where the two are that close, negate the left one in place.
+    Returns True if the fix was applied."""
+    if np.abs(left.shapedirs[:, 0, :] - right.shapedirs[:, 0, :]).sum() < 1:
+        left.shapedirs[:, 0, :] = -left.shapedirs[:, 0, :]
+        return True
+    return False
+
+
+def load_mano_models(mano_dir: str) -> Dict[str, ManoModelData]:
+    """Both hands from ``{mano_dir}/mano/MANO_{LEFT,RIGHT}.pkl`` (the
+    reference's layout under its MANO path) or from ``mano_dir`` itself,
+    with the shapedirs fix applied."""
+    candidates = [os.path.join(mano_dir, "mano"), mano_dir]
+    base = next((c for c in candidates
+                 if os.path.isfile(os.path.join(c, "MANO_RIGHT.pkl"))), None)
+    if base is None:
+        raise FileNotFoundError(
+            f"MANO_RIGHT.pkl not found under {candidates}; download the MANO "
+            "assets or use synthetic_mano_models() for tests")
+    left = load_mano_pkl(os.path.join(base, "MANO_LEFT.pkl"), "left")
+    right = load_mano_pkl(os.path.join(base, "MANO_RIGHT.pkl"), "right")
+    apply_shapedirs_fix(left, right)
+    return {"left": left, "right": right}
 
 
 def synthetic_mano_models(seed: int = 0) -> Dict[str, ManoModelData]:

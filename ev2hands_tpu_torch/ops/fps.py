@@ -9,6 +9,11 @@ for a CPU tensor. Both give identical indices.
 ``fps`` checks a caller's ``start`` against [0, N), which reads it back on
 the host. The model draws its starts in range by construction and calls
 ``fps_unchecked``, which makes no host sync.
+
+The model's FPS goes through the registered op ``torch.ops.ev2hands.fps``
+(``fps_op``: the plain version for a CPU tensor, the kernel for a CUDA
+one, a shape function for ``torch.export``), so an exported program keeps
+the call as one node and launches the kernel when it runs on the card.
 """
 
 from __future__ import annotations
@@ -76,19 +81,30 @@ def fps_unchecked(
     work: bool = True,
 ) -> torch.Tensor:
     """``fps`` for a ``start`` that is in range by construction: no host
-    sync (the kernel clamps a start outside [0, N) into the row).
+    sync (the kernel clamps a start outside [0, N) into the row). It calls
+    the registered op ``torch.ops.ev2hands.fps``, which ``torch.export``
+    records as one node.
 
     ``config`` (threads, points a thread), ``redux`` (the two redux.sync,
     else the 64-bit butterfly) and ``work`` (False: the chain floor, no
     distance work and meaningless indices) choose another instantiation of
-    the kernel, for measurement; they do not apply on the CPU."""
-    B, N, C = xyz.shape
+    the kernel, for measurement; they launch it directly, and do not apply
+    on the CPU."""
+    B, N, _ = xyz.shape
     if start is not None and tuple(start.shape) != (B,):
         raise ValueError(f"fps: start must be [B] indices in [0, {N})")
-    if xyz.device.type == "cpu":
-        return fps_plain(xyz, npoint, start)
-    if xyz.device.type != "cuda":
-        raise ValueError(f"fps: unsupported device {xyz.device}")
+    if xyz.device.type == "cuda" and (config is not None or not redux or not work):
+        return _launch(xyz, npoint, start, config, redux, work)
+    return fps_op(xyz, npoint, start)
+
+
+def _launch(
+    xyz: torch.Tensor, npoint: int, start: Optional[torch.Tensor],
+    config: Optional[Tuple[int, int]] = None, redux: bool = True,
+    work: bool = True,
+) -> torch.Tensor:
+    """The kernel on a CUDA tensor; counts the launch on ``fps``."""
+    B, N, C = xyz.shape
     if C != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"fps: want [B, N, 3] float32, got {tuple(xyz.shape)} {xyz.dtype}")
     if not 1 <= N <= MAX_N:
@@ -117,3 +133,21 @@ def fps_unchecked(
 
 
 fps.launches = 0
+
+
+@torch.library.custom_op("ev2hands::fps", mutates_args=(), device_types="cpu")
+def fps_op(xyz: torch.Tensor, npoint: int,
+           start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The model's FPS as a registered op, ``torch.ops.ev2hands.fps``:
+    the plain version on the CPU, the kernel on the card."""
+    return fps_plain(xyz, npoint, start)
+
+
+@fps_op.register_kernel("cuda")
+def _fps_cuda(xyz, npoint, start=None):
+    return _launch(xyz, npoint, start)
+
+
+@fps_op.register_fake
+def _fps_fake(xyz, npoint, start=None):
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)

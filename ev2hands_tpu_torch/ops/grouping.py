@@ -22,7 +22,12 @@ eval path runs for the large sa1 scales:
   (``msg_fused_scales_sparse_plain`` on a CPU tensor).
 
 On a CUDA tensor both wrappers launch the block-sparse kernel of
-``csrc/msg_dense.cu``, ``msg_scale_sparse`` as its one-scale case.
+``csrc/msg_dense.cu``, ``msg_scale_sparse`` as its one-scale case. Both go
+through registered ops, ``torch.ops.ev2hands.msg_scale_sparse`` and
+``torch.ops.ev2hands.msg_fused_scales_sparse`` (the plain version for a CPU
+tensor, the kernel for a CUDA one, a shape function for ``torch.export``),
+which take the ``FoldedScale`` as its six tensors, so an exported program
+keeps each call as one node.
 
 The dense counterparts pool one scale over every point in original order,
 with no Morton order and no tile skip. The JAX package keeps them as
@@ -47,7 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -283,12 +288,30 @@ def msg_scale_sparse(
     folded: FoldedScale, sel_p: torch.Tensor, act: torch.Tensor, nb: int
 ) -> torch.Tensor:
     """-> [B, S, C3] pooled features of one scale. ``folded.u`` rows and
-    ``sel_p`` columns in Morton order, ``act`` from ``tile_activity``."""
-    if folded.u.device.type == "cpu":
-        return msg_scale_sparse_plain(folded, sel_p, act, nb)
-    if folded.u.device.type != "cuda":
-        raise ValueError(f"msg_scale_sparse: unsupported device {folded.u.device}")
-    C1, C2, C3 = folded.W2.shape[0], folded.W2.shape[1], folded.W3.shape[1]
+    ``sel_p`` columns in Morton order, ``act`` from ``tile_activity``.
+    Calls the registered op ``torch.ops.ev2hands.msg_scale_sparse``."""
+    return msg_scale_sparse_op(*folded, sel_p, act, nb)
+
+
+msg_scale_sparse.launches = 0
+
+
+@torch.library.custom_op("ev2hands::msg_scale_sparse", mutates_args=(),
+                         device_types="cpu")
+def msg_scale_sparse_op(
+    u: torch.Tensor, v: torch.Tensor, W2: torch.Tensor, b2: torch.Tensor,
+    W3: torch.Tensor, b3: torch.Tensor, sel_p: torch.Tensor, act: torch.Tensor,
+    nb: int,
+) -> torch.Tensor:
+    """``msg_scale_sparse`` with the ``FoldedScale`` as its six tensors:
+    the plain version on the CPU, the kernel on the card."""
+    return msg_scale_sparse_plain(FoldedScale(u, v, W2, b2, W3, b3), sel_p, act, nb)
+
+
+@msg_scale_sparse_op.register_kernel("cuda")
+def _msg_scale_sparse_cuda(u, v, W2, b2, W3, b3, sel_p, act, nb):
+    folded = FoldedScale(u, v, W2, b2, W3, b3)
+    C1, C2, C3 = W2.shape[0], W2.shape[1], W3.shape[1]
     if not _widths_fit((C1, C2, C3)):
         raise ValueError(f"msg_scale_sparse: widths {(C1, C2, C3)} exceed the "
                          f"kernel's {_MAX_WIDTHS}")
@@ -299,7 +322,9 @@ def msg_scale_sparse(
     return out
 
 
-msg_scale_sparse.launches = 0
+@msg_scale_sparse_op.register_fake
+def _msg_scale_sparse_fake(u, v, W2, b2, W3, b3, sel_p, act, nb):
+    return u.new_empty((u.shape[0], v.shape[1], W3.shape[1]))
 
 
 def stack_folded_scales(
@@ -359,18 +384,41 @@ def msg_fused_scales_sparse(
     the layer's concatenation order. ``stacked`` and ``blocks`` from
     ``stack_folded_scales`` (``u`` rows in Morton order), ``sel_all``
     [B, R, S, N] the per-scale masks with Morton columns, ``act`` the union
-    of the scales' ``tile_activity``."""
-    if stacked.u.device.type == "cpu":
-        return msg_fused_scales_sparse_plain(stacked, sel_all, act, sections, nb)
-    if stacked.u.device.type != "cuda":
-        raise ValueError(f"msg_fused_scales_sparse: unsupported device {stacked.u.device}")
+    of the scales' ``tile_activity``. Calls the registered op
+    ``torch.ops.ev2hands.msg_fused_scales_sparse``, ``blocks`` flattened."""
+    return msg_fused_scales_sparse_op(
+        *stacked, sel_all, act, [int(c) for c in sections], nb,
+        [int(c) for block in blocks for c in block])
+
+
+msg_fused_scales_sparse.launches = 0
+
+
+@torch.library.custom_op("ev2hands::msg_fused_scales_sparse", mutates_args=(),
+                         device_types="cpu")
+def msg_fused_scales_sparse_op(
+    u: torch.Tensor, v: torch.Tensor, W2: torch.Tensor, b2: torch.Tensor,
+    W3: torch.Tensor, b3: torch.Tensor, sel_all: torch.Tensor, act: torch.Tensor,
+    sections: List[int], nb: int, blocks: List[int],
+) -> torch.Tensor:
+    """``msg_fused_scales_sparse`` with the stacked ``FoldedScale`` as its
+    six tensors and ``blocks`` as the flat list C1, C2 of each scale: the
+    plain version on the CPU, the kernel on the card."""
+    return msg_fused_scales_sparse_plain(
+        FoldedScale(u, v, W2, b2, W3, b3), sel_all, act, sections, nb)
+
+
+@msg_fused_scales_sparse_op.register_kernel("cuda")
+def _msg_fused_scales_sparse_cuda(u, v, W2, b2, W3, b3, sel_all, act, sections,
+                                  nb, blocks):
+    stacked = FoldedScale(u, v, W2, b2, W3, b3)
     R = len(sections)
-    widths = [(int(c1), int(c2), int(c3)) for (c1, c2), c3 in zip(blocks, sections)]
-    if not 1 <= R <= _MAX_SCALES or len(blocks) != R:
-        raise ValueError(f"msg_fused_scales_sparse: {R} sections and {len(blocks)} "
-                         f"blocks; want 1 to {_MAX_SCALES} of each")
+    if not 1 <= R <= _MAX_SCALES or len(blocks) != 2 * R:
+        raise ValueError(f"msg_fused_scales_sparse: {R} sections and "
+                         f"{len(blocks) / 2:g} blocks; want 1 to {_MAX_SCALES} of each")
+    widths = [(blocks[2 * r], blocks[2 * r + 1], sections[r]) for r in range(R)]
     if (tuple(sum(w[i] for w in widths) for i in range(3))
-            != (stacked.W2.shape[0], stacked.W2.shape[1], stacked.W3.shape[1])
+            != (W2.shape[0], W2.shape[1], W3.shape[1])
             or not all(_widths_fit(w) for w in widths)):
         raise ValueError(f"msg_fused_scales_sparse: blocks {tuple(blocks)} and sections "
                          f"{tuple(sections)} do not fit the stacked weights or the "
@@ -381,7 +429,10 @@ def msg_fused_scales_sparse(
     return out
 
 
-msg_fused_scales_sparse.launches = 0
+@msg_fused_scales_sparse_op.register_fake
+def _msg_fused_scales_sparse_fake(u, v, W2, b2, W3, b3, sel_all, act, sections,
+                                  nb, blocks):
+    return u.new_empty((u.shape[0], v.shape[1], sum(sections)))
 
 
 def dense_msg_scale_2d_plain(

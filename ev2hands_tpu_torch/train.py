@@ -7,11 +7,13 @@ with augmentation -> ``TEHNet`` in training mode -> ``apply_mano`` ->
 a ``Prefetcher``, losses logged every ``msg_iter`` steps, an evaluation every
 ``save_iter`` steps with a checkpoint on a new best score, warm start from a
 ``.pth`` file or a checkpoint directory, and resume. It runs on the card
-unless asked for the CPU. The hands are the synthetic MANO models
-(``build_hands``); multi-device runs are not ported.
+unless asked for the CPU. The hands are the MANO pickles under
+``--mano_dir`` (``cfg.mano.model_path``) or, with ``--synthetic_mano``,
+the synthetic models (``build_hands``); multi-device runs are not ported.
 
     python -m ev2hands_tpu_torch.train --data_root data/Ev2Hands-S \
-        --synthetic_mano [--device cpu] [--max_iter 100] [--resume_dir DIR]
+        [--mano_dir data/models | --synthetic_mano] [--device cpu] \
+        [--max_iter 100] [--resume_dir DIR]
 
 Randomness: the step ``it`` draws from a generator seeded by ``(seed + 1,
 it)`` and the evaluation's batch ``i`` from one seeded by ``(0, i)``
@@ -37,7 +39,7 @@ from ev2hands_tpu_torch.evaluate import make_full_eval_step
 from ev2hands_tpu_torch.events.streams import Ev2HandSReader, Prefetcher
 from ev2hands_tpu_torch.losses import CollisionContext, mano_losses, total_loss
 from ev2hands_tpu_torch.mano.layer import ManoParams, create_mano_params
-from ev2hands_tpu_torch.mano.model_data import synthetic_mano_models
+from ev2hands_tpu_torch.mano.model_data import load_mano_models, synthetic_mano_models
 from ev2hands_tpu_torch.metrics import PckAccumulator
 from ev2hands_tpu_torch.model.tehnet import TEHNet, apply_mano
 from ev2hands_tpu_torch.ops.collision import (
@@ -50,10 +52,23 @@ from ev2hands_tpu_torch.utils.logging import RunLogger
 Rows = Tuple[np.ndarray, List[Dict]]
 
 
-def build_hands(cfg: Config, device="cuda") -> Dict[str, ManoParams]:
-    """Both hands' MANO constants from the synthetic models (seed 0)."""
+def build_hands(cfg: Config, synthetic: bool = False,
+                device="cuda") -> Dict[str, ManoParams]:
+    """Both hands' MANO constants on ``device``: from the MANO pickles under
+    ``cfg.mano.model_path``, or from the synthetic models (seed 0)."""
+    models = (synthetic_mano_models(0) if synthetic
+              else load_mano_models(cfg.mano.model_path))
     return {side: create_mano_params(m, cfg.mano.n_pose_comps, device=device)
-            for side, m in synthetic_mano_models(0).items()}
+            for side, m in models.items()}
+
+
+def add_mano_args(ap: argparse.ArgumentParser) -> None:
+    """The CLIs' choice of hands: ``--mano_dir`` (``cfg.mano.model_path``)
+    or ``--synthetic_mano``."""
+    ap.add_argument("--mano_dir", default=DEFAULT_CONFIG.mano.model_path,
+                    help="directory of MANO_{LEFT,RIGHT}.pkl (or mano/MANO_*.pkl)")
+    ap.add_argument("--synthetic_mano", action="store_true",
+                    help="the synthetic MANO models in place of the pickles")
 
 
 def build_collision_context(hands: Dict[str, ManoParams]) -> CollisionContext:
@@ -312,12 +327,10 @@ def start_run(name: str, cfg: Config, synthetic_mano: bool, checkpoint_path: str
     and Adam on ``device``, warm-started from ``checkpoint_path`` (a
     ``.pth`` file or a checkpoint directory) and then resumed from the
     latest checkpoint in ``resume_dir`` (model, Adam, step, best score)
-    where it has one."""
-    if not synthetic_mano:
-        raise NotImplementedError(
-            "the port reads no MANO pickles yet: pass synthetic_mano=True")
+    where it has one. The hands are the synthetic MANO models with
+    ``synthetic_mano``, else the pickles under ``cfg.mano.model_path``."""
+    hands = build_hands(cfg, synthetic_mano, device)
     logger = RunLogger(name, base_dir, tensorboard)
-    hands = build_hands(cfg, device=device)
     net = TEHNet(cfg.model, device=device)
     optimizer = make_optimizer(net.parameters(), cfg.train)
     logger.log_run_config(cfg, net)
@@ -412,11 +425,12 @@ def main(argv=None) -> TrainRun:
                     default=DEFAULT_CONFIG.train.eval_batch_size)
     ap.add_argument("--n_points", type=int, default=DEFAULT_CONFIG.model.n_points)
     ap.add_argument("--msg_iter", type=int, default=DEFAULT_CONFIG.train.msg_iter)
-    ap.add_argument("--synthetic_mano", action="store_true")
+    add_mano_args(ap)
     ap.add_argument("--tensorboard", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = DEFAULT_CONFIG.replace(
+        mano=dataclasses.replace(DEFAULT_CONFIG.mano, model_path=args.mano_dir),
         model=dataclasses.replace(DEFAULT_CONFIG.model, n_points=args.n_points),
         train=dataclasses.replace(
             DEFAULT_CONFIG.train, data_root=args.data_root,

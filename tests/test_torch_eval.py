@@ -237,7 +237,7 @@ def hands_case():
     """Synthetic-MANO meshes of two hands posed into each other (B=2), in mm,
     and both packages' collision contexts."""
     rng = np.random.RandomState(5)
-    hands = ttrain.build_hands(DEFAULT_CONFIG, device="cpu")
+    hands = ttrain.build_hands(DEFAULT_CONFIG, synthetic=True, device="cpu")
     verts = []
     for side, dx in (("left", -0.01), ("right", 0.01)):
         go = (0.3 * rng.randn(2, 3)).astype(np.float32)
@@ -435,7 +435,7 @@ def test_evaluate_dataset_matches_jax(data_dir, monkeypatch):
     calls = []
     real = tl.msg_fused_scales_sparse
     monkeypatch.setattr(tl, "msg_fused_scales_sparse", lambda *a: calls.append(1) or real(*a))
-    got = tev.evaluate_dataset(port, ttrain.build_hands(cfg, device="cpu"),
+    got = tev.evaluate_dataset(port, ttrain.build_hands(cfg, synthetic=True, device="cpu"),
                                ts.Ev2HandSReader(data_dir["root"], N), cfg,
                                max_frames=2 * bs, device="cpu", draws=jax_draws)
     assert len(calls) == 2   # sa1's, one a batch

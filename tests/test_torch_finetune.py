@@ -144,7 +144,7 @@ def test_finetune_step_on_cpu(recordings):
     cfg = _small_cfg()
     net = TEHNet(cfg.model, device="cpu")
     net.load_state_dict(tw.init_weights(torch.Generator().manual_seed(1), cfg.model))
-    hands = ttr.build_hands(cfg, device="cpu")
+    hands = ttr.build_hands(cfg, synthetic=True, device="cpu")
     ctx = ttr.build_collision_context(hands)
     opt = ttr.make_optimizer(net.parameters(), cfg.train)
     proj = cfg.camera.projection_matrix(W, H)

@@ -562,7 +562,7 @@ def test_two_training_steps_bitwise_equal(cuda):
         pallas_gather_bwd=True, dropout_classifier=0.0, dropout_query=0.0,
         dropout_regressor=0.0))
     state = init_weights(torch.Generator().manual_seed(0), cfg.model)
-    hands = ttr.build_hands(cfg, device=cuda)
+    hands = ttr.build_hands(cfg, synthetic=True, device=cuda)
     ctx = ttr.build_collision_context(hands)
     batch = _train_batch(np.random.RandomState(3), B, N)
     s = cfg.sensor
@@ -607,7 +607,7 @@ def test_resume_two_steps_bitwise_on_card(cuda, tmp_path):
     B, N = 2, 2048
     cfg = DEFAULT_CONFIG.replace(model=ModelConfig(
         n_points=N, pallas_gather=True, pallas_gather_bwd=True))
-    hands = ttr.build_hands(cfg, device=cuda)
+    hands = ttr.build_hands(cfg, synthetic=True, device=cuda)
     ctx = ttr.build_collision_context(hands)
     rng = np.random.RandomState(5)
     batches = [_train_batch(rng, B, N) for _ in range(4)]
@@ -659,3 +659,69 @@ def test_native_loader_through_the_prefetcher(cuda):
         for side in ("left", "right"):
             for key, value in want[side].items():
                 np.testing.assert_array_equal(batch[side][key], value)
+
+
+# --- the serving export and the demo's rasterizer ----------------------------
+
+def test_exported_program_launches_the_kernels_on_the_card(cuda):
+    """Exported on the card at full width, the loaded program launches 3 FPS
+    and 3 block-sparse grouping kernels a request and gives the live
+    function's bits."""
+    import tempfile
+
+    from ev2hands_tpu_torch import export as tex
+    from ev2hands_tpu_torch import train as ttr
+    from ev2hands_tpu_torch import weights as tw
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG
+    from ev2hands_tpu_torch.model import tehnet as tt
+
+    cfg = DEFAULT_CONFIG
+    net = tt.TEHNet(cfg.model, device="cuda")
+    net.load_state_dict(tw.init_weights(torch.Generator().manual_seed(0), cfg.model))
+    hands = ttr.build_hands(cfg, synthetic=True, device="cuda")
+    n_ev = 4096
+    rng = np.random.RandomState(1)
+    ev = np.stack([rng.randint(0, 346, (2, n_ev)), rng.randint(0, 260, (2, n_ev)),
+                   np.sort(rng.uniform(0, 2, (2, n_ev))), rng.randint(0, 2, (2, n_ev))],
+                  -1).astype(np.float32)
+    inputs = (torch.from_numpy(ev).cuda(), torch.ones(2, n_ev, dtype=torch.bool).cuda(),
+              torch.from_numpy(rng.rand(2, cfg.model.n_points)).cuda())
+    with tempfile.TemporaryDirectory() as d:
+        program = tex.export_serving(net, hands, cfg, 2, n_ev, path=f"{d}/s.pt2")
+        loaded = tex.load_serving(f"{d}/s.pt2")
+    assert tex.op_counts(program) == {"fps": 3, "msg_scale_sparse": 3}
+    with torch.no_grad():
+        live = tex.make_serving_fn(net, hands, cfg)(*inputs)
+    launches = (tf.fps.launches, tg.msg_scale_sparse.launches)
+    got = loaded(*inputs)
+    torch.cuda.synchronize()
+    assert (tf.fps.launches - launches[0], tg.msg_scale_sparse.launches - launches[1]) == (3, 3)
+    for k, v in live.items():
+        assert torch.equal(got[k], v), k
+
+
+def test_rasterize_mesh_on_the_card_matches_cpu(cuda):
+    """The card's rasterizer against the CPU's on the same vertices: class
+    ids equal (ties to the lowest triangle on both), intensity and depth
+    within 1e-5."""
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, SensorConfig
+    from ev2hands_tpu_torch.datagen import rasterizer as tr
+    from ev2hands_tpu_torch.train import build_hands
+
+    W, H = 64, 48
+    cfg = DEFAULT_CONFIG.replace(sensor=SensorConfig(W, H))
+    hands = build_hands(cfg, synthetic=True, device="cpu")
+    # both hands 0.4 m in front of the camera, 3 cm apart, in mm
+    verts = torch.cat([hands["left"].v_template + torch.tensor([-0.03, 0.0, -0.4]),
+                       hands["right"].v_template + torch.tensor([0.03, 0.0, -0.4])]) * 1e3
+    n_f = len(hands["left"].faces)
+    faces = torch.cat([hands["left"].faces, hands["right"].faces + 778])
+    materials = torch.cat([torch.ones(n_f, dtype=torch.int32),
+                           torch.full((n_f,), 2, dtype=torch.int32)])
+    proj = torch.as_tensor(cfg.camera.projection_matrix(W, H), dtype=torch.float32)
+    proj = proj * torch.tensor([[-1.0], [1.0], [1.0], [1.0]])
+    ref = tr.rasterize_mesh(verts, faces, materials, proj, W, H)
+    got = tr.rasterize_mesh(*(t.cuda() for t in (verts, faces, materials, proj)), W, H)
+    assert torch.equal(got.class_id.cpu(), ref.class_id)
+    torch.testing.assert_close(got.intensity.cpu(), ref.intensity, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.depth.cpu(), ref.depth, rtol=1e-5, atol=0)

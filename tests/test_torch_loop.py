@@ -169,7 +169,8 @@ def test_train_loop_resume(tmp_path, monkeypatch):
     batch and draws gives the uninterrupted run's parameters, BatchNorm
     statistics and Adam state bitwise. A run resumed from the checkpoint
     takes exactly one more step. Without --device it asks for the card and
-    raises on a host without one."""
+    raises on a host without one; without synthetic MANO it reads the
+    pickles under ``cfg.mano.model_path`` and raises where there are none."""
     monkeypatch.chdir(tmp_path)
     root = str(tmp_path / "data")
     for split_name in ("train", "val"):
@@ -193,7 +194,7 @@ def test_train_loop_resume(tmp_path, monkeypatch):
     net = TEHNet(cfg.model, device="cpu")
     opt = ttr.make_optimizer(net.parameters(), cfg.train)
     Checkpointer(ckpt).restore_into(net, opt, step=2)
-    hands = ttr.build_hands(cfg, device="cpu")
+    hands = ttr.build_hands(cfg, synthetic=True, device="cpu")
     step = ttr.make_train_step(net, hands, ttr.build_collision_context(hands), cfg,
                                opt, device="cpu")
     loader = tnl.NativeEv2HandSLoader(f"{root}/train", N, seed=cfg.train.seed)
@@ -207,5 +208,5 @@ def test_train_loop_resume(tmp_path, monkeypatch):
     assert again.step == 3 and again.stats.steps == 1
     assert f"resumed from {ckpt} at step 2" in open(f"{again.run_dir}/log.txt").read()
     assert sorted(glob.glob("runs/train_*")) == sorted([run.run_dir, again.run_dir])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="MANO_RIGHT.pkl"):   # no pickles here
         ttr.train(cfg, synthetic_mano=False, device="cpu")

@@ -151,7 +151,7 @@ def run_port_slice(case, pallas_gather):
     net.load_state_dict(tw.flax_to_torch(case["variables"]), strict=True)
     net.double().train()
     hands = {s: ManoParams(*(t.double() if t.is_floating_point() else t for t in p))
-             for s, p in ttr.build_hands(cfg, device="cpu").items()}
+             for s, p in ttr.build_hands(cfg, synthetic=True, device="cpu").items()}
     ctx = ttr.build_collision_context(hands)
     b = case["batch"]
     targets = {"left": {k: _t(v).double() for k, v in b["left"].items()},
@@ -359,7 +359,7 @@ def test_train_step_on_cpu():
         n_points=N, pallas_gather=True, pallas_gather_bwd=True))
     net = tt.TEHNet(cfg.model, device="cpu")
     net.load_state_dict(tw.init_weights(torch.Generator().manual_seed(1), cfg.model))
-    hands = ttr.build_hands(cfg, device="cpu")
+    hands = ttr.build_hands(cfg, synthetic=True, device="cpu")
     ctx = ttr.build_collision_context(hands)
     opt = ttr.make_optimizer(net.parameters(), cfg.train)
     if not torch.cuda.is_available():
