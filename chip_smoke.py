@@ -151,10 +151,28 @@ Phases (any failed check raises, so the script exits non-zero):
      bitwise equal to one with the synthetic models (the left-hand
      shapedirs fix applied, as the loader applies it); then the device
      memory statistics (utils/device.get_device_memory_usage);
- 20. a `kernels` JSON line (times from CUDA events, bounds from this run's
+ 20. data generation: Ev2Hands-S generated on the card at the full sensor
+     (346x260) in the realistic scene with the JAX defaults of EsimConfig
+     and DatagenConfig: two augmented copies (seeds 0 and 1) of a
+     synthetic two-hand sequence of 10 annotation frames at 5 fps,
+     interpolated to 30 fps (120 frames), through datagen.generate into
+     pickle parts, stitch_rows and Ev2HandSReader.from_rows; frames/s end
+     to end, events a frame, peak device memory; the split of a frame's
+     time (MANO and forearms, rasterize_scene, log intensity with
+     esim_step from CUDA events; the copy to the host, the expansion with
+     the labels and the part write on the host clock) and the device's
+     busy share; the first 3 frames of copy 0 on the card and on the CPU
+     with the same draws: class ids differ on at most 0.1% of pixels, RGB
+     within 1e-5 where they agree, esim_step on the card from the CPU's
+     log frames bitwise equal in the four compact fields and the state,
+     event counts within 1%; 2 training steps at B=8, N=2048 on the kernel
+     route on generated windows (4 FPS, 4 gather, 3 scatter-add launches a
+     step, finite losses) and one serving request of 16 generated windows
+     (3 FPS, 3 grouping launches);
+ 21. a `kernels` JSON line (times from CUDA events, bounds from this run's
      inputs), the gather and scatter-add also by training shape, FPS with
      its chain floor, every phase-3 shape and the sweep;
- 21. last line: {"ok": true, "device": {...}}.
+ 22. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result without a CUDA device, or without the
 repository's package beside it.
@@ -163,6 +181,7 @@ repository's package beside it.
 import collections
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -299,6 +318,28 @@ def raw_request(np, seed, width=346, height=260):
     return raw, rng.randint(0, 4, (B, N)).astype(np.int32)
 
 
+def profiled_kernels(torch, fn, reps, what):
+    """The device kernels of ``fn()`` under the profiler, by name, largest
+    first: (name, device ms a rep, launches a rep) over ``reps`` reps in the
+    call; raises where the profiler records no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = []   # device-side events only (operators would count twice)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            kernels.append((e.key, dev_us / 1e3 / reps, e.count // reps))
+    if not kernels:
+        raise AssertionError(f"{what}: the profiler recorded no device time")
+    return sorted(kernels, key=lambda k: -k[1])
+
+
 def where_the_time_goes(torch, pipe, requests):
     """Phase 7: per-module device times of one request (CUDA events from
     forward hooks on TEHNet's top-level children), then the profiler's
@@ -342,23 +383,11 @@ def where_the_time_goes(torch, pipe, requests):
     for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         log(f"  stage {name:45s} {ms:9.3f} ms  {100 * ms / total_ms:5.1f}%")
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+    def run():
         for raw, lab, gen in requests:
             pipe(raw, lab, gen)
-        torch.cuda.synchronize()
-    kernels = []   # device-side events only (operators would count twice)
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            kernels.append((e.key, dev_us / 1e3 / R, e.count // R))
-    if not kernels:
-        raise AssertionError("breakdown: the profiler recorded no device time")
-    kernels.sort(key=lambda k: -k[1])
+
+    kernels = profiled_kernels(torch, run, R, "breakdown")
     busy_ms = sum(k[1] for k in kernels)
     # the profiler slows the host, so the busy share is taken against the
     # request time measured above
@@ -1954,6 +1983,261 @@ def mano_loader_phase(torch, np, dev, state, tmp, raw0, lab0, draws0):
         f"{len(outs['loaded'])} outputs")
 
 
+# the data generation (phase 20): annotation frames of the sequence and
+# their rate, its augmented copies, the frames held card vs CPU, training
+# steps on the generated windows
+DATAGEN_FRAMES, DATAGEN_FPS, DATAGEN_COPIES, DATAGEN_CHECKED = 10, 5, 2, 3
+DATAGEN_TRAIN_STEPS = 2
+DATAGEN_SPLIT = ("mano_forearms", "rasterize_scene", "log_intensity_esim",
+                 "copy_to_host", "expand_labels", "part_write")
+
+
+def datagen_sequence(np):
+    """Annotations of a two-hand motion 0.45 m in front of the camera at
+    ``DATAGEN_FPS``: each hand sweeps sideways and back, turns about the
+    vertical and flexes its fingers -> {frame: {side: {pose, shape, trans}}}."""
+    seq = {}
+    for f in range(DATAGEN_FRAMES):
+        phase = 2.0 * np.pi * f / DATAGEN_FRAMES
+        entry = {}
+        for side, x0, sgn in (("left", -0.07, 1.0), ("right", 0.07, -1.0)):
+            pose = np.zeros(48, np.float32)
+            pose[:3] = [0.2 * np.sin(phase), 0.5 * sgn * np.sin(phase), 0.0]
+            pose[3:] = 0.15 * (1.0 - np.cos(phase))
+            entry[side] = {
+                "pose": pose, "shape": np.zeros(10, np.float32),
+                "trans": np.float32([x0 + 0.04 * sgn * np.sin(phase),
+                                     0.02 * np.cos(phase), -0.45]),
+            }
+        seq[f] = entry
+    return seq
+
+
+def datagen_phase(torch, np, dev, state, pipe):
+    """Phase 20: Ev2Hands-S generation at the full sensor in the realistic
+    scene (generate, stitch_rows, Ev2HandSReader.from_rows), frames/s and
+    events a frame, the split of a frame's time, the device's busy share
+    and peak memory; card vs CPU on copy 0's first frames; training steps
+    and a serving request on the generated windows, counted.
+    -> (launches, numbers)."""
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.datagen import generate as kgen
+    from ev2hands_tpu_torch.datagen.interhand import AxisAngleToPca
+    from ev2hands_tpu_torch.datagen.interpolate import augment_sequence, interpolate_sequence
+    from ev2hands_tpu_torch.datagen.meshes import random_skin_vertex_colors
+    from ev2hands_tpu_torch.datagen.stitch import stitch_rows
+    from ev2hands_tpu_torch.events.streams import Ev2HandSReader
+    from ev2hands_tpu_torch.mano.layer import create_mano_params
+    from ev2hands_tpu_torch.mano.model_data import synthetic_mano_models
+    from ev2hands_tpu_torch.model.tehnet import TEHNet
+    from ev2hands_tpu_torch.ops.esim import CompactEvents, EsimState, esim_init
+
+    cfg = DEFAULT_CONFIG
+    W, H = cfg.sensor.width, cfg.sensor.height
+    models = synthetic_mano_models(0)
+    frames = interpolate_sequence(datagen_sequence(np), DATAGEN_FPS,
+                                  cfg.esim.interpolation_fps)
+    copies = [augment_sequence(frames, np.random.RandomState(s))
+              for s in range(DATAGEN_COPIES)]
+    n_frames = sum(len(c) for c in copies)
+    numbers = {"frames": n_frames, "sensor": [W, H]}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_datagen_")
+    try:
+        # generate end to end: the copies are sequences 0 and 1 (seeds 0, 1)
+        torch.cuda.synchronize()
+        base_mb = torch.cuda.memory_allocated() / 2 ** 20
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        parts = kgen.generate(iter(copies), models, os.path.join(tmp, "parts"), cfg=cfg,
+                              frames_per_part=30, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        rows, annos = stitch_rows(parts)
+        per_frame = np.bincount(rows[:, 4], minlength=len(annos))
+        numbers.update(parts=len(parts), seconds=gen_s, frames_per_s=n_frames / gen_s,
+                       events=len(rows), events_per_frame=len(rows) / n_frames,
+                       events_per_frame_max=int(per_frame.max()),
+                       label_shares=[float((rows[:, 5] == c).mean()) for c in range(3)],
+                       peak_mb=peak_mb, peak_above_base_mb=peak_mb - base_mb)
+        log(f"datagen: {n_frames} frames ({DATAGEN_COPIES} copies of {len(frames)} at "
+            f"{W}x{H}) in {gen_s:.2f} s = {numbers['frames_per_s']:.2f} frames/s end to "
+            f"end; {len(rows)} events, {numbers['events_per_frame']:.1f} a frame (max "
+            f"{numbers['events_per_frame_max']}), labels bg/left/right "
+            f"{numbers['label_shares']}; peak device memory {peak_mb:.1f} MB "
+            f"({peak_mb - base_mb:.1f} MB above the {base_mb:.1f} MB held before)")
+        if len(annos) != n_frames or len(rows) < 8 * N:
+            raise AssertionError(f"datagen: {len(annos)} frames, {len(rows)} events")
+        if not (set(np.unique(rows[:, 5])) == {0, 1, 2} and rows[:, 0].max() < W
+                and rows[:, 1].max() < H and rows[:, 0].min() >= 0):
+            raise AssertionError("datagen: event rows out of range or a class missing")
+
+        # the split of a frame's time over copy 0, stage by stage: CUDA
+        # events on the device stages, the host clock (after a sync) on the
+        # copy, the expansion and the part write
+        n_comps = cfg.mano.n_pose_comps
+        faces = models["left"].faces
+        to_pca = {s: AxisAngleToPca(models[s]) for s in ("left", "right")}
+        n_total = kgen.scene_topology(faces, cfg)[2]
+
+        def simulator(device):
+            hands = {s: create_mano_params(models[s], n_comps, device=device)
+                     for s in ("left", "right")}
+            colors = random_skin_vertex_colors(n_total, np.random.RandomState(0))
+            return kgen.FrameSimulator(hands, faces, cfg, colors)
+
+        draws = kgen.sequence_draws(0, len(copies[0]), cfg)
+        dt_ns = 1e9 / cfg.esim.simulator_fps
+        sim, bg = simulator(dev), draws.background.to(dev)
+        st = esim_init(H, W, device=dev)
+        split = collections.defaultdict(float)
+        out = []
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for fi, hand_list in enumerate(copies[0]):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            params, info = kgen.hand_params(hand_list, to_pca, n_comps, dev)
+            lp, li = (x.to(dev) for x in draws.lights[fi])
+            ev[0].record()
+            verts = sim.meshes(params)
+            ev[1].record()
+            raster = sim.render(verts, lp, li)
+            ev[2].record()
+            st, compact = sim.integrate(st, sim.log_frame(raster, bg), np.float32(fi * dt_ns))
+            ev[3].record()
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            host = [x.cpu().numpy() for x in (*compact, raster.class_id)]
+            t_b = time.perf_counter()
+            events, labels = kgen.events_and_labels(CompactEvents(*host[:4]), host[4])
+            t_c = time.perf_counter()
+            out.append({"events": events, "event_labels": labels, "camera_hand_info": info})
+            split["mano_forearms"] += ev[0].elapsed_time(ev[1])
+            split["rasterize_scene"] += ev[1].elapsed_time(ev[2])
+            split["log_intensity_esim"] += ev[2].elapsed_time(ev[3])
+            split["copy_to_host"] += 1e3 * (t_b - t_a)
+            split["expand_labels"] += 1e3 * (t_c - t_b)
+        t_a = time.perf_counter()
+        with open(os.path.join(tmp, "split.pickle"), "wb") as f:
+            pickle.dump(out, f)
+        split["part_write"] = 1e3 * (time.perf_counter() - t_a)
+        wall_ms = 1e3 * (time.perf_counter() - t_start) / len(out)
+        split = {k: split[k] / len(out) for k in DATAGEN_SPLIT}
+        numbers.update(split_ms=split, split_wall_ms=wall_ms,
+                       split_frames_per_s=1e3 / wall_ms)
+        log(f"datagen split, ms a frame over copy 0's {len(out)} frames (device stages "
+            f"from CUDA events, host stages on the host clock, a sync after the device "
+            f"stages): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f"; {wall_ms:.3f} ms a frame on the wall ({1e3 / wall_ms:.2f} frames/s)")
+        if sum(len(f["events"]) for f in out) != int(per_frame[:len(out)].sum()):
+            raise AssertionError("datagen split: copy 0 re-run gave other events")
+
+        # the device's busy share over 10 frames of copy 0 (simulate_sequence
+        # end to end; the profiler's kernel time against the same run's wall
+        # time without the profiler)
+        def ten():
+            list(kgen.simulate_sequence(copies[0][:10], models, cfg, seed=0, device=dev))
+
+        ten()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ten()
+        torch.cuda.synchronize()
+        ten_ms = 1e3 * (time.perf_counter() - t0) / 10
+        kernels = profiled_kernels(torch, ten, 10, "datagen")
+        busy = sum(k[1] for k in kernels) / ten_ms
+        numbers.update(busy_share=busy, device_ms_per_frame=sum(k[1] for k in kernels),
+                       launches_per_frame=sum(k[2] for k in kernels))
+        log(f"datagen: device kernels {sum(k[1] for k in kernels):.3f} ms a frame of "
+            f"{ten_ms:.3f} ms = {100 * busy:.1f}% busy, {numbers['launches_per_frame']} "
+            f"kernel launches a frame")
+        for name, ms, count in kernels[:8]:
+            log(f"  kernel {ms:9.3f} ms x{count:<5d} {name[:100]}")
+
+        # card vs CPU on copy 0's first frames, the same draws: the
+        # rasteriser, then esim_step on the card from the CPU's log frames
+        # (bitwise), then the card's own log frames (event counts)
+        sim_cpu = simulator("cpu")
+        s_cpu = esim_init(H, W, device="cpu")
+        s_from_cpu, s_own = esim_init(H, W, device=dev), esim_init(H, W, device=dev)
+        fields = CompactEvents._fields + EsimState._fields
+        worst = {"class_share": 0.0, "rgb": 0.0, "count_rel": 0.0}
+        for fi in range(DATAGEN_CHECKED):
+            t = np.float32(fi * dt_ns)
+            r = {}
+            for name, s_, device in (("cpu", sim_cpu, "cpu"), ("card", sim, dev)):
+                params, _ = kgen.hand_params(copies[0][fi], to_pca, n_comps, device)
+                lp, li = (x.to(device) for x in draws.lights[fi])
+                r[name] = s_.render(s_.meshes(params), lp, li)
+            same = r["cpu"].class_id == r["card"].class_id.cpu()
+            share = 1.0 - same.float().mean().item()
+            rgb = (r["card"].rgb.cpu()[same] - r["cpu"].rgb[same]).abs().max().item()
+            log_cpu = sim_cpu.log_frame(r["cpu"], draws.background)
+            s_cpu, e_cpu = sim_cpu.integrate(s_cpu, log_cpu, t)
+            s_from_cpu, e_card = sim.integrate(s_from_cpu, log_cpu.to(dev), t)
+            differ = [k for k, a, b in zip(fields, (*e_cpu, *s_cpu), (*e_card, *s_from_cpu))
+                      if not torch.equal(a, b.cpu())]
+            s_own, e_own = sim.integrate(s_own, sim.log_frame(r["card"], bg), t)
+            n_cpu, n_card = int(e_cpu.count.sum()), int(e_own.count.sum())
+            rel = abs(n_card - n_cpu) / max(n_cpu, 1)
+            log(f"datagen card vs CPU, frame {fi}: class ids differ on {100 * share:.4f}% "
+                f"of pixels, RGB {rgb:.3g} where they agree; esim_step from the CPU's log "
+                f"frame: {len(fields) - len(differ)} of {len(fields)} fields bitwise; "
+                f"events {n_card} on the card, {n_cpu} on the CPU")
+            if share > 1e-3 or not rgb <= 1e-5 or differ or rel > 0.01:
+                raise AssertionError(f"datagen card vs CPU, frame {fi}: class share {share}, "
+                                     f"rgb {rgb}, fields differ {differ}, events "
+                                     f"{n_card} / {n_cpu}")
+            worst = {"class_share": max(worst["class_share"], share),
+                     "rgb": max(worst["rgb"], rgb), "count_rel": max(worst["count_rel"], rel)}
+        numbers["card_vs_cpu"] = worst
+
+        # training steps and a serving request on the generated windows
+        reader = Ev2HandSReader.from_rows(rows, annos, n_events=N)
+        tcfg = cfg.replace(model=ModelConfig(n_points=N, pallas_gather=True,
+                                             pallas_gather_bwd=True))
+        hands = ktrain.build_hands(tcfg, synthetic=True, device=dev)
+        net = TEHNet(tcfg.model, device=dev)
+        net.load_state_dict(state, strict=True)
+        step = ktrain.make_train_step(net, hands, ktrain.build_collision_context(hands),
+                                      tcfg, ktrain.make_optimizer(net.parameters(), tcfg.train),
+                                      augment=True, device=dev)
+        batches = reader.batches(TRAIN_B, shuffle=True)
+        gen = torch.Generator(device=dev).manual_seed(30)
+        reset_launches()
+        losses = [step(next(batches), gen) for _ in range(DATAGEN_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        train_launches = read_launches()
+        log(f"datagen training: {DATAGEN_TRAIN_STEPS} steps at B={TRAIN_B}, N={N} on the "
+            f"generated windows; launches {train_launches}; losses "
+            + json.dumps([{k: round(v, 4) for k, v in l.items()} for l in losses]))
+        check_launches("datagen training", train_launches, TRAIN_PER_STEP,
+                       DATAGEN_TRAIN_STEPS)
+        if not all(np.isfinite(v) for l in losses for v in l.values()):
+            raise AssertionError("datagen training: a loss is not finite")
+        del net, step
+
+        batch = next(reader.batches(B, shuffle=False))
+        reset_launches()
+        with torch.inference_mode():
+            served = pipe(torch.from_numpy(batch["events"]), torch.from_numpy(batch["labels"]),
+                          torch.Generator(device=dev).manual_seed(31))
+        torch.cuda.synchronize()
+        serve_launches = read_launches()
+        log(f"datagen serving: one request of {B} generated windows; launches "
+            f"{serve_launches}")
+        check_launches("datagen serving", serve_launches, EVAL_PER_BATCH, 1)
+        for key, val in served.items():
+            if not torch.isfinite(val).all():
+                raise AssertionError(f"datagen serving: {key} is not finite")
+        numbers["losses"] = losses[-1]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("datagen numbers: " + json.dumps(numbers))
+    return {k: train_launches[k] + serve_launches[k] for k in train_launches}, numbers
+
+
 def main() -> int:
     import torch
 
@@ -2180,7 +2464,10 @@ def main() -> int:
                                   "four_channel_windows_per_s": four_wps}))
     log("device memory: " + json.dumps(get_device_memory_usage()))
 
-    # 20. the kernels line. ms, plain_ms, bound_ms and library_ms add the
+    # 20. Ev2Hands-S generation, its windows trained on and served
+    datagen_launches, _ = datagen_phase(torch, np, dev, state, pipe)
+
+    # 21. the kernels line. ms, plain_ms, bound_ms and library_ms add the
     # calls of one pass: the three serving FPS shapes and sa1 scales of a
     # forward, the fused sa1 call of an evaluation forward, the four gathers
     # and three scatter-adds of a training step, a dense op's three sa1
@@ -2189,12 +2476,13 @@ def main() -> int:
     # 4 steps, the evaluations' 8 + 3 batches, phase 4c's ops, the training
     # loop's 6 steps and 4 evaluation batches, finetuning's 4 steps and 4
     # evaluation batches, the loaded exports' 4 + 4 requests, the demo's 7 +
-    # 7 batches, the 4-channel forward's 4 requests), also listed by path.
+    # 7 batches, the 4-channel forward's 4 requests, the generated data's 2
+    # training steps and 1 serving request), also listed by path.
     by_path = {"serving": launches, "training": train_launches,
                "evaluation": eval_launches, "ops": ops_launches,
                "training_loop": loop_launches, "finetune": ft_launches,
                "export": export_launches, "demo": demo_launches,
-               "four_channel": four_launches}
+               "four_channel": four_launches, "datagen": datagen_launches}
 
     def entry(name, source, replaces, rows, err, library=False):
         return {

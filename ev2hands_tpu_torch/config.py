@@ -1,5 +1,6 @@
 """Configuration of the PyTorch port: the fields of ``ev2hands_tpu.config``
-that the inference, training, finetuning and evaluation paths read, copied
+that the inference, training, finetuning, evaluation and data-generation
+paths read, copied
 so that the port imports nothing of the JAX package. Field names and
 defaults are the JAX package's."""
 
@@ -20,6 +21,20 @@ class SensorConfig:
     @property
     def num_pixels(self) -> int:
         return self.width * self.height
+
+
+@dataclasses.dataclass(frozen=True)
+class EsimConfig:
+    """Event-simulator thresholds and rates of the data generator."""
+
+    positive_threshold: float = 0.4
+    negative_threshold: float = 0.4
+    # per-pixel dead time between emitted events, ns (0: none)
+    refractory_period_ns: int = 0
+    simulator_fps: int = 1000
+    interpolation_fps: int = 30
+    # bound on the events a pixel emits between two frames
+    max_events_per_pixel: int = 25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,16 +164,33 @@ class CameraConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DatagenConfig:
+    """Scene dressing of the synthetic generator: Gouraud vertex colours,
+    forearms, per-frame point lights and a per-sequence background
+    (``realistic_scene``), or flat-shaded hands on a grey background."""
+
+    realistic_scene: bool = True
+    add_forearms: bool = True
+    ambient: float = 0.1
+    background_cells: int = 8    # grid of the background's low-frequency field
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     sensor: SensorConfig = SensorConfig()
+    esim: EsimConfig = EsimConfig()
     mano: ManoConfig = ManoConfig()
     model: ModelConfig = ModelConfig()
     loss: LossConfig = LossConfig()
     train: TrainConfig = TrainConfig()
     camera: CameraConfig = CameraConfig()
+    datagen: DatagenConfig = DatagenConfig()
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
 
 DEFAULT_CONFIG = Config()
+
+# the hands' base skin colour (RGB in [0, 1])
+HAND_COLOR = (198 / 255, 134 / 255, 66 / 255)

@@ -148,6 +148,11 @@ def test_port_imports_no_jax():
         "import ev2hands_tpu_torch.utils.logging, ev2hands_tpu_torch.camera\n"
         "import ev2hands_tpu_torch.export, ev2hands_tpu_torch.demo\n"
         "import ev2hands_tpu_torch.datagen.rasterizer\n"
+        "import ev2hands_tpu_torch.ops.esim, ev2hands_tpu_torch.datagen.generate\n"
+        "import ev2hands_tpu_torch.datagen.meshes, ev2hands_tpu_torch.datagen.interhand\n"
+        "import ev2hands_tpu_torch.datagen.interpolate, ev2hands_tpu_torch.datagen.stitch\n"
+        "import ev2hands_tpu_torch.datagen.erpc_writer\n"
+        "import ev2hands_tpu_torch.datagen.visualize\n"
         "import ev2hands_tpu_torch.utils.device, ev2hands_tpu_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('h5py', 'cv2')]\n"
         "assert not bad, bad\n"

@@ -725,3 +725,91 @@ def test_rasterize_mesh_on_the_card_matches_cpu(cuda):
     assert torch.equal(got.class_id.cpu(), ref.class_id)
     torch.testing.assert_close(got.intensity.cpu(), ref.intensity, rtol=0, atol=1e-5)
     torch.testing.assert_close(got.depth.cpu(), ref.depth, rtol=1e-5, atol=0)
+
+
+# --- data generation on the card ---------------------------------------------
+
+def _datagen_scene(W=64, H=48):
+    """Both synthetic hands 0.45 m in front of the camera with forearms, as
+    the generator's realistic scene lays them out."""
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, SensorConfig
+    from ev2hands_tpu_torch.datagen import generate as tg
+    from ev2hands_tpu_torch.datagen import meshes as tm
+    from ev2hands_tpu_torch.mano.model_data import synthetic_mano_models
+
+    cfg = DEFAULT_CONFIG.replace(sensor=SensorConfig(W, H))
+    models = synthetic_mano_models(0)
+    faces, materials, n_total, _ = tg.scene_topology(models["left"].faces, cfg)
+    verts = []
+    for side, x0 in (("left", -0.06), ("right", 0.06)):
+        v = models[side].v_template + np.float32([x0, 0.0, -0.45])
+        verts += [v, tm.forearm_mesh(v[0].astype(np.float64), np.array([0.0, -1.0, 0.2]))[0]]
+    colors = tm.random_skin_vertex_colors(n_total, np.random.RandomState(0))
+    return cfg, models, [torch.from_numpy(np.asarray(a)) for a in (
+        np.concatenate(verts).astype(np.float32), faces, materials, colors,
+        cfg.camera.projection_matrix(W, H).astype(np.float32))]
+
+
+@pytest.mark.parametrize("W,H", [(64, 48), (346, 260)])
+def test_rasterize_scene_on_the_card_matches_cpu(cuda, W, H):
+    """The shaded rasteriser on the card against the CPU on the same scene
+    and lights: class ids differ on at most 0.1% of the pixels, RGB within
+    1e-5 and depth within rtol 1e-5 where they agree."""
+    from ev2hands_tpu_torch.datagen import rasterizer as tr
+
+    _, _, (verts, faces, materials, colors, proj) = _datagen_scene(W, H)
+    lp, li = tr.sample_train_lights(torch.Generator().manual_seed(0))
+    ref = tr.rasterize_scene(verts, faces, materials, colors, lp, li, proj, W, H)
+    got = tr.rasterize_scene(*(t.to(cuda) for t in (verts, faces, materials, colors,
+                                                    lp, li, proj)), W, H)
+    cls = got.class_id.cpu()
+    same = cls == ref.class_id
+    assert (~same).float().mean().item() <= 1e-3
+    assert (ref.class_id > 0).sum() > 100
+    torch.testing.assert_close(got.rgb.cpu()[same], ref.rgb[same], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.depth.cpu()[same], ref.depth[same], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("refractory_ns", [0.0, 0.35e6])
+def test_esim_step_on_the_card_bitwise(cuda, refractory_ns):
+    """esim_step on the card from the CPU's log frames: every compact field
+    and every state tensor bitwise equal to the CPU's at each of 5 steps
+    (plain IEEE arithmetic: any difference is a fault)."""
+    from ev2hands_tpu_torch.ops import esim as te
+
+    rng = np.random.RandomState(0)
+    frames = torch.from_numpy(rng.randn(5, 260, 346).astype(np.float32) * 1.5)
+    s_cpu, s_gpu = te.esim_init(260, 346, device="cpu"), te.esim_init(260, 346, device=cuda)
+    for f in range(len(frames)):
+        t = np.float32(f * 1e6)
+        s_cpu, e_cpu = te.esim_step(s_cpu, frames[f], t, refractory_period_ns=refractory_ns)
+        s_gpu, e_gpu = te.esim_step(s_gpu, frames[f].to(cuda), t,
+                                    refractory_period_ns=refractory_ns)
+        for a, b in zip((*e_cpu, *s_cpu), (*e_gpu, *s_gpu)):
+            assert torch.equal(a, b.cpu())
+    assert int(e_cpu.count.sum()) > 0
+
+
+def test_simulate_sequence_on_the_card(cuda):
+    """A 3-frame realistic sequence at 64x48 on the card and on the CPU with
+    the same draws: a frame's event count within 1%, labels in {0, 1, 2},
+    the same annotation entries."""
+    from ev2hands_tpu_torch.datagen import generate as tg
+
+    cfg, models, _ = _datagen_scene()
+    frames = []
+    for i in range(3):
+        pose = np.zeros(48, np.float32)
+        pose[:3] = [0, 0.2 * i / 3, 0]
+        frames.append([{"hand_type": side, "pose": pose, "shape": np.zeros(10, np.float32),
+                        "trans": np.float32([x0 + 0.01 * i, 0, -0.45])}
+                       for side, x0 in (("left", -0.06), ("right", 0.06))])
+    ref = list(tg.simulate_sequence(frames, models, cfg, seed=0, device="cpu"))
+    got = list(tg.simulate_sequence(frames, models, cfg, seed=0, device=cuda))
+    assert sum(len(f["events"]) for f in ref) > 100
+    for a, b in zip(got, ref):
+        assert abs(len(a["events"]) - len(b["events"])) <= 0.01 * len(b["events"])
+        assert set(np.unique(a["event_labels"])) <= {0, 1, 2}
+        for side in b["camera_hand_info"]:
+            for k, v in b["camera_hand_info"][side].items():
+                np.testing.assert_array_equal(a["camera_hand_info"][side][k], v)
