@@ -169,10 +169,49 @@ Phases (any failed check raises, so the script exits non-zero):
      route on generated windows (4 FPS, 4 gather, 3 scatter-add launches a
      step, finite losses) and one serving request of 16 generated windows
      (3 FPS, 3 grouping launches);
- 21. a `kernels` JSON line (times from CUDA events, bounds from this run's
+ 21. data parallel at world size 1 over NCCL (parallel/mesh.py): 2
+     kernel-route training steps at B=8 (phase 10's configuration, batches
+     and given draws) through the mesh route, every loss term, gradient,
+     BatchNorm statistic and parameter after Adam bitwise equal to the same
+     steps without a mesh, counted (3 FPS, 4 gather, 3 scatter-add a step:
+     deterministic FPS shares the heads' draw); windows/s from a second,
+     warm run, and the collectives' calls and share of the wall time from
+     a third run of the same steps under torch.profiler (as for every
+     multi-device run);
+ 22. data parallel over two gloo ranks, both on the card (started once for
+     phases 22 and 24a, the kernels built by this process): the same 2
+     steps at a global B=8, the first against the one-process step within
+     STEP_BOUNDS["data_parallel"] (f32 sums in another order); the second
+     step again, from the one-process state after the first, within
+     STEP_BOUNDS["data_parallel_resync"] (the free-running second step is
+     only logged beside its first-order prediction and must be finite:
+     Adam's first update turns rounding in near-zero gradients into 2 lr);
+     the sharded mid-run evaluation (train.evaluate, 4 batches of 32, 16 a
+     rank, predictions all-gathered) with the unsharded score and AUCs
+     within rtol 1e-5; one finetuning step (finite losses); launches
+     counted on each rank; windows/s and collectives; which ops gloo
+     carries for CUDA tensors on this build;
+ 23. dense_train: one step on the dense route (multiplicity-weighted
+     BatchNorm sums) against the gather route's first step of phase 21,
+     within STEP_BOUNDS["dense_train"]; 3 FPS launches and no other;
+ 24. event parallel (parallel/event_parallel.py), over NCCL at world size
+     1 and over gloo at (data 1, event 2) with both ranks on the card: the
+     eval forward at B=16 against the one-process forward (K1, K2) on the
+     same ERPC clouds, every FPS index equal and every output within 1e-4,
+     and one dense_train step against phase 23's, within
+     STEP_BOUNDS["event_parallel"]; no kernel launch (the event route
+     shards FPS and the pair work in plain torch, as the JAX package does);
+     STEP_BOUNDS come from chip_smoke_tolerances.py;
+ 25. the split export: export_serving(data_parallel=2) and load_serving on
+     [card, card], one request of B=16 split over both, each shard bitwise
+     equal to the one-device program, 3 FPS and 3 grouping launches a
+     shard, windows/s; then loaded on [CPU, card], which moves the first
+     shard's program to the CPU: that shard within phase 5's card-against-
+     CPU limits, the other bitwise;
+ 26. a `kernels` JSON line (times from CUDA events, bounds from this run's
      inputs), the gather and scatter-add also by training shape, FPS with
      its chain floor, every phase-3 shape and the sweep;
- 22. last line: {"ok": true, "device": {...}}.
+ 27. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result without a CUDA device, or without the
 repository's package beside it.
@@ -180,6 +219,7 @@ repository's package beside it.
 
 import collections
 import json
+import math
 import os
 import pickle
 import re
@@ -713,18 +753,20 @@ def compare_steps(torch, name, a, b, loss_rtol, cos_min, norm_tol, buf_rtol,
     cosine >= ``cos_min`` and a norm ratio within ``norm_tol`` of 1; every
     BatchNorm statistic within ``buf_rtol`` * max(1, |b|). The gradients
     named in ``skip`` (``batchnorm_cancelled_biases``: zero by construction,
-    rounding noise on both sides) are left out."""
+    rounding noise on both sides) are left out. -> the readings: the largest
+    loss and BatchNorm deviations, the least cosine (with its tensor and
+    the tensor's two norms), the largest norm deviation."""
     (la, ga, ba), (lb, gb, bb) = a, b
     loss_dev, loss_key = max((abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-30)
                               if la[k] != lb[k] else 0.0, k) for k in lb)
-    cos_lo, cos_key, norm_dev, bad = 1.0, None, 0.0, []
+    cos_lo, cos_key, cos_norms, norm_dev, bad = 1.0, None, None, 0.0, []
     for k in sorted(set(gb) - skip):
         x, y = ga[k].double().ravel(), gb[k].double().ravel()
         nx, ny = x.norm().item(), y.norm().item()
         cos = (x @ y).item() / max(nx * ny, 1e-300)
         dev = abs(nx / max(ny, 1e-300) - 1)
         if cos < cos_lo:
-            cos_lo, cos_key = cos, k
+            cos_lo, cos_key, cos_norms = cos, k, (nx, ny)
         norm_dev = max(norm_dev, dev)
         if cos < cos_min or dev > norm_tol:
             bad.append((k, cos, dev))
@@ -738,6 +780,8 @@ def compare_steps(torch, name, a, b, loss_rtol, cos_min, norm_tol, buf_rtol,
         f"diff {buf_dev:.3g} at {buf_key} (limit {buf_rtol})")
     if loss_dev > loss_rtol or bad or buf_dev > buf_rtol:
         raise AssertionError(f"{name}: out of tolerance; gradients {bad[:5]}")
+    return dict(loss=loss_dev, cos=cos_lo, norm=norm_dev, buf=buf_dev, cos_key=cos_key,
+                cos_norms=cos_norms)
 
 
 def tapped_step(torch, net, step, *args, **kwargs):
@@ -2238,6 +2282,589 @@ def datagen_phase(torch, np, dev, state, pipe):
     return {k: train_launches[k] + serve_launches[k] for k in train_launches}, numbers
 
 
+# the multi-device phases (21-25): the data-parallel steps at a global batch
+# of TRAIN_B and its sharded evaluation's batches; the event-parallel
+# forward's batch is B, its training step's TRAIN_B
+DP_STEPS, DP_EVAL_BATCHES = 2, 4
+DP_RANKS = 2
+# compare_steps' bounds for two float32 steps whose sums run in another
+# order (two ranks' halves, the dense route's weighted sums, the event
+# shards), one set per comparison: chip_smoke_tolerances.bounds_from_readings
+# of that comparison's readings over the seeds of chip_smoke_tolerances.py on the
+# H100 (five times the largest, rounded up to two significant digits); the
+# readings stand in PERF.md. In float64 the same routes agree within 1e-8
+# (tests/test_torch_event_parallel_model.py).
+STEP_BOUNDS = {   # 8 seeds; 7 for the resynced step (seed 3's state is
+    # ill-conditioned: one process's two routes turn a gradient around there)
+    "data_parallel": dict(loss_rtol=4.4e-4, cos_min=0.9979, norm_tol=0.054,
+                          buf_rtol=1.6e-4),
+    "data_parallel_resync": dict(loss_rtol=6.1e-5, cos_min=0.9988, norm_tol=0.033,
+                                 buf_rtol=9.1e-5),
+    "dense_train": dict(loss_rtol=2.4e-5, cos_min=0.989, norm_tol=0.09, buf_rtol=1.6e-4),
+    "event_parallel": dict(loss_rtol=2.7e-5, cos_min=0.989, norm_tol=0.17,
+                           buf_rtol=2.1e-4),
+}
+# a step with deterministic FPS: one draw serves both regressor heads
+DET_PER_STEP = {"fps": 3, "onehot_gather": 4, "onehot_scatter_add": 3}
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def timed(torch, dev, fn):
+    """``fn()`` between two syncs of ``dev`` -> (its result, seconds)."""
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    return out, time.perf_counter() - t0
+
+
+def profile_collectives(torch, dev, fn):
+    """``fn()`` under torch.profiler -> the collectives of that run: the
+    calls (the dispatcher's "c10d::*" operations, one a call), the seconds
+    covered on the host by them and by the backend's operations ("gloo:*",
+    which include gloo's copies of CUDA tensors, and "nccl:*"), and the
+    seconds of NCCL's device kernels, each also as a share of the profiled
+    run's wall time."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(dev).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall = timed(torch, dev, fn)
+    events = prof.events()
+    host = [e for e in events if e.name.startswith(("gloo:", "nccl:", "c10d::"))]
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and "nccl" in e.name.lower()]
+    host_s = covered([(e.time_range.start, e.time_range.end) for e in host])
+    dev_s = covered([(e.time_range.start, e.time_range.end) for e in kernels])
+    calls = sum(e.name.startswith("c10d::") for e in host)
+    return dict(calls=calls, events=dict(collections.Counter(e.name for e in host)),
+                host_s=host_s / 1e6, host_share=host_s / 1e6 / wall, kernels=len(kernels),
+                device_s=dev_s / 1e6, device_share=dev_s / 1e6 / wall, wall_s=wall)
+
+
+def covered(spans):
+    """The length of the union of [start, end) spans: the caller's span of
+    a collective and its backend's spans (gloo records two a call on CUDA
+    tensors, in its worker threads) count their overlap once."""
+    total, end = 0, None
+    for a, b in sorted(spans):
+        if end is not None and b <= end:
+            continue
+        total += b - max(a, end) if end is not None and a < end else b - a
+        end = b
+    return total
+
+
+def collectives_text(c):
+    return (f"collectives {c['calls']} calls ({c['events']} events): "
+            f"{100 * c['host_share']:.2f}% of "
+            f"the profiled run's {c['wall_s']:.3f} s on the host, {c['kernels']} NCCL "
+            f"kernels {100 * c['device_share']:.2f}%")
+
+
+def counted_run(torch, dev, fn, profile=True):
+    """``fn() -> (result, seconds)`` once with its kernel launches counted:
+    its result is what the phase checks. With ``profile``, then once more
+    for the seconds (warm: a rank's first run pays its process's first
+    CUDA work; no instrumentation) and once under torch.profiler for its
+    collectives. -> (result, {"secs", "launches", "collectives"})."""
+    reset_launches()
+    res, secs = fn()
+    info = dict(secs=secs, launches=read_launches(), collectives=None)
+    if profile:
+        _, info["secs"] = fn()
+        info["collectives"] = profile_collectives(torch, dev, fn)
+    return res, info
+
+
+def route_config(**model):
+    """Phase 10's kernel route with deterministic FPS and no dropout, at
+    full width; ``model`` overrides."""
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+
+    kw = dict(n_points=N, fps_deterministic=True, pallas_gather=True,
+              pallas_gather_bwd=True, dropout_classifier=0.0, dropout_query=0.0,
+              dropout_regressor=0.0)
+    return DEFAULT_CONFIG.replace(model=ModelConfig(**{**kw, **model}))
+
+
+def dp_inputs(torch, np, seed=0):
+    """The training batches of the multi-device steps (at ``seed`` 0 phase
+    10's first batch and the next), each with draws made on the CPU from a
+    seed."""
+    cfg = route_config()
+    batches = [fake_batch(np, 10 + i + 100 * seed, TRAIN_B) for i in range(DP_STEPS)]
+    return batches, [given_draws(torch, b, cfg, seed=7 + i + 100 * seed)
+                     for i, b in enumerate(batches)]
+
+
+def multi_steps(torch, dev, state, cfg, batches, draws, mesh=None, event_mesh=None):
+    """Training steps from the weights ``state`` through the entry point,
+    the batches and draws given (global ones under a mesh) -> ([(losses,
+    gradients, BatchNorm buffers, parameters after Adam) after each step],
+    the steps' seconds)."""
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.model.tehnet import TEHNet
+
+    hands = ktrain.build_hands(cfg, synthetic=True, device=dev)
+    net = TEHNet(cfg.model, device=dev, mesh=mesh, event_mesh=event_mesh)
+    net.load_state_dict(state, strict=True)
+    step = ktrain.make_train_step(net, hands, ktrain.build_collision_context(hands), cfg,
+                                  ktrain.make_optimizer(net.parameters(), cfg.train),
+                                  device=dev)
+    runs = []
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    for batch, (d, nz) in zip(batches, draws):
+        losses = step(batch, draws=d, noise=nz)
+        runs.append((losses, *step_state(net)))
+    sync(torch, dev)
+    return runs, time.perf_counter() - t0
+
+
+def state_after(run):
+    """The state dict of a net after a step of ``multi_steps``: its
+    parameters after Adam and its BatchNorm buffers."""
+    _, _, bufs, params = run
+    return {**params, **bufs}
+
+
+def bitwise_differ(torch, a, b):
+    """The names that differ between two step records (losses, gradients,
+    buffers, parameters)."""
+    (la, *ta), (lb, *tb) = a, b
+    out = [f"loss {k}" for k in la if la[k] != lb[k]]
+    for what, x, y in zip(("gradient", "buffer", "parameter"), ta, tb):
+        out += [f"{what} {k}" for k in x if not torch.equal(x[k], y[k])]
+    return out
+
+
+def captured_fps(modules, names):
+    """Patch the FPS functions ``names`` of ``modules`` to record their
+    indices -> (the record, a function that undoes the patch)."""
+    record, undo = [], []
+    for m in modules:
+        for name in names:
+            real = getattr(m, name)
+
+            def wrapped(*a, _real=real, **k):
+                idx = _real(*a, **k)
+                record.append(idx.detach().cpu().clone())
+                return idx
+            setattr(m, name, wrapped)
+            undo.append((m, name, real))
+    return record, lambda: [setattr(m, n, r) for m, n, r in undo]
+
+
+def event_forward(torch, dev, state, events, event_mesh):
+    """The eval forward of the ERPC clouds ``events`` [B, N, 5], one process
+    (``event_mesh`` None: the default route, K1 and K2) or event-sharded
+    -> ((outputs on the CPU, the FPS indices in call order), seconds)."""
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.model import layers as klayers
+    from ev2hands_tpu_torch.model import tehnet as ktehnet
+
+    cfg = DEFAULT_CONFIG.replace(model=ModelConfig(n_points=N, event_parallel=True))
+    net = ktehnet.TEHNet(cfg.model, device=dev, event_mesh=event_mesh)
+    net.load_state_dict(state, strict=True)
+    net.eval()
+    name = "fps_unchecked" if event_mesh is None else "event_sharded_fps"
+    record, undo = captured_fps((klayers, ktehnet), (name,))
+    try:
+        with torch.inference_mode():
+            out, secs = timed(torch, dev, lambda: net(events.to(dev)))
+    finally:
+        undo()
+    flat = {"class_logits": out["class_logits"].cpu()}
+    flat.update({f"{s}_{k}": out[s][k].cpu() for s in ("left", "right") for k in out[s]})
+    return (flat, record), secs
+
+
+def check_event_forward(torch, name, got, secs, ref, ref_secs):
+    """Phase 24's forward check: every FPS index equal, every output within
+    1e-4 of the one-process forward's."""
+    (out, fps), (ref_out, ref_fps) = got, ref
+    if len(fps) != len(ref_fps) or not all(torch.equal(a, b) for a, b in zip(fps, ref_fps)):
+        raise AssertionError(f"{name}: FPS indices differ from the one-process forward's")
+    diffs = {k: (out[k] - v).abs().max().item() for k, v in ref_out.items()}
+    log(f"{name}: {len(fps)} FPS calls with the one-process forward's indices, "
+        f"{sum(f.numel() for f in fps)} indices; outputs max abs diff "
+        + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+        + f" (limit 1e-4); {B / secs:.2f} windows/s (one process: {B / ref_secs:.2f})")
+    bad = {k: v for k, v in diffs.items() if not v <= 1e-4}
+    if bad:
+        raise AssertionError(f"{name}: outputs differ beyond 1e-4: {bad}")
+
+
+def two_rank_work(device, sizes, state, resync, batches, draws, eval_rows, events, rec):
+    """Phases 22 and 24a on one rank of two over gloo, both on ``device``
+    (the card): the data-parallel steps, their second step again from the
+    one-process route's state ``resync`` after its first, the sharded
+    evaluation and a finetuning step, then the event-parallel forward and
+    training step at (data 1, event 2). Each counted; each but the resynced
+    step then run again, timed and under the profiler (``counted_run``).
+    ``sizes`` are the parent's batch and cloud sizes (a CPU rehearsal
+    shrinks them). -> what the parent checks, on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from ev2hands_tpu_torch import finetune as kft
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.events.real_streams import Ev2HandRReader
+    from ev2hands_tpu_torch.events.streams import Ev2HandSReader
+    from ev2hands_tpu_torch.model.tehnet import TEHNet
+    from ev2hands_tpu_torch.ops import _build
+    from ev2hands_tpu_torch.parallel import mesh as pm
+
+    globals().update(sizes)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = pm.local_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        for name in _build.KERNELS:   # built by the parent; loaded here
+            _build.load(name)
+    out = {"device": str(dev)}
+    mesh = pm.create_mesh(DP_RANKS, dev)
+
+    def run(key, fn, profile=True):
+        res, out[key] = counted_run(torch, dev, fn, profile)
+        return res
+
+    # 22a. the data-parallel steps; the second again from the one-process state
+    for key, start, part, prof in (("steps", state, slice(None), True),
+                                   ("resync_step", resync, slice(1, None), False)):
+        runs = run(key, lambda: multi_steps(torch, dev, start, route_config(),
+                                            batches[part], draws[part], mesh), prof)
+        out[key]["runs"] = runs if mesh.is_main else None
+    # 22b. the sharded mid-run evaluation
+    cfg = loop_config(EVAL_B, max_eval_iters=DP_EVAL_BATCHES * EVAL_B)
+    net = TEHNet(cfg.model, device=dev, mesh=mesh)
+    net.load_state_dict(state, strict=True)
+    hands = ktrain.build_hands(cfg, synthetic=True, device=dev)
+    estep = ktrain.make_eval_step(net, hands, cfg, dev)
+    out["metrics"] = run("eval", lambda: timed(torch, dev, lambda: ktrain.evaluate(
+        estep, Ev2HandSReader.from_rows(*eval_rows, N), cfg, device=dev)))
+    # 22c. one finetuning step
+    proj = cfg.camera.projection_matrix(cfg.sensor.width, cfg.sensor.height)
+    batch = next(Ev2HandRReader(rec, seed=4).batches(TRAIN_B))
+
+    def finetune_step():
+        net.load_state_dict(state, strict=True)
+        fstep = kft.make_finetune_step(
+            net, hands, ktrain.build_collision_context(hands), cfg,
+            ktrain.make_optimizer(net.parameters(), cfg.train), proj, dev)
+        return timed(torch, dev, lambda: fstep(batch, ktrain.seeded_generator(2, 0, dev)))
+
+    out["finetune_losses"] = run("finetune", finetune_step)
+    del net, estep
+
+    # 24a. event parallel at (data 1, event 2)
+    emesh = pm.create_event_mesh(DP_RANKS, 1, dev)
+    out["event_out"] = run("event_forward",
+                           lambda: event_forward(torch, dev, state, events, emesh))
+    runs = run("event_step", lambda: multi_steps(
+        torch, dev, state, route_config(dense_train=True, event_parallel=True),
+        batches[:1], draws[:1], event_mesh=emesh))
+    out["event_step"]["runs"] = runs if mesh.is_main else None
+
+    # what gloo carries for CUDA tensors on this build
+    ops = {}
+    for name, dtype, op in (("all_reduce SUM float32", torch.float32, dist.ReduceOp.SUM),
+                            ("all_reduce SUM float64", torch.float64, dist.ReduceOp.SUM),
+                            ("all_reduce SUM int64", torch.int64, dist.ReduceOp.SUM),
+                            ("all_reduce MAX float32", torch.float32, dist.ReduceOp.MAX),
+                            ("broadcast float32", torch.float32, None)):
+        t = torch.full((4,), mesh.rank + 1, dtype=dtype, device=dev)
+        try:
+            if op is None:
+                dist.broadcast(t, 0)
+                want = 1
+            else:
+                dist.all_reduce(t, op=op)
+                want = 3 if op == dist.ReduceOp.SUM else 2
+            ops[name] = "ok" if (t == want).all().item() else f"wrong result {t.tolist()}"
+        except Exception as e:  # the record names what failed
+            ops[name] = f"{type(e).__name__}: {str(e)[:100]}"
+    out["gloo_cuda_ops"] = ops
+    return out
+
+
+def free_second_step(name, ranks, plain, lr):
+    """Log the second step of free-running data-parallel steps against the
+    one-process route's; its losses must be finite. Adam's first update
+    moves every parameter by about lr * sign(gradient), so a gradient entry
+    near 0 that rounding flipped moves its parameter by 2 lr, and the second
+    step starts elsewhere: the log gives the parameters that moved apart by
+    more than lr, and the first-order change of the total loss that their
+    difference dθ predicts, g · dθ with g the one-process route's gradient
+    at the second step. No bound holds this step (Cauchy-Schwarz's
+    |g| |dθ| stands orders above the loss); the resynced second step is
+    held instead."""
+    theta_r, theta_p, grads = ranks[0][3], plain[0][3], plain[1][1]
+    dtheta = {k: theta_r[k].double() - theta_p[k].double() for k in theta_p}
+    flips = sum(int((d.abs() > lr).sum()) for d in dtheta.values())
+    pred = sum((grads[k].double() * d).sum().item() for k, d in dtheta.items())
+    got, want = ranks[1][0], plain[1][0]
+    log(f"{name}: {flips} parameters differ by more than lr after the first step; total "
+        f"loss {got['loss']!r} against {want['loss']!r}, diff "
+        f"{got['loss'] - want['loss']:.4g}, first-order prediction {pred:.4g}")
+    if not all(math.isfinite(v) for v in got.values()):
+        raise AssertionError(f"{name}: a loss term is not finite")
+
+
+def multi_device_phases(torch, np, dev, state, raw0, lab0, draws0):
+    """Phases 21-24: data parallel at world size 1 over NCCL (bitwise against
+    the plain route) and at world size 2 over gloo with both ranks on the
+    card (steps, the sharded evaluation, a finetuning step), dense_train
+    against the gather route, and event parallel over gloo at (data 1,
+    event 2) and over NCCL at world size 1. The one-process references run
+    uncounted. -> (launches by path, numbers)."""
+    import torch.distributed as dist
+
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.events.erpc import erpc_batch_transform
+    from ev2hands_tpu_torch.events.real_streams import write_synthetic_ev2hands_r
+    from ev2hands_tpu_torch.events.streams import Ev2HandSReader, synthetic_ev2hands_s
+    from ev2hands_tpu_torch.model.tehnet import TEHNet, batchnorm_cancelled_biases
+    from ev2hands_tpu_torch.parallel import mesh as pm
+
+    cuda = torch.device(dev).type == "cuda"
+    batches, draws = dp_inputs(torch, np)
+    skip = batchnorm_cancelled_biases(TEHNet(route_config().model, device="cpu"))
+    launches, numbers = {}, {}
+    t_phase = time.perf_counter()
+
+    # 21. data parallel at world size 1 over NCCL against the plain route
+    plain, plain_s = multi_steps(torch, dev, state, route_config(), batches, draws)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"file://{os.path.join(tmp, 'init')}",
+                            world_size=1, rank=0)
+    try:
+        mesh = pm.create_mesh(1, dev)
+        one, info = counted_run(torch, dev, lambda: multi_steps(
+            torch, dev, state, route_config(), batches, draws, mesh))
+        launches["data_parallel_ws1"] = info["launches"]
+        check_launches("data parallel (world size 1)", info["launches"], DET_PER_STEP,
+                       DP_STEPS)
+        differ = [d for a, b in zip(one, plain) for d in bitwise_differ(torch, a, b)]
+        coll = info["collectives"]
+        log(f"data parallel, world size 1 over {dist.get_backend()}: {DP_STEPS} steps of "
+            f"{TRAIN_B} windows, every loss term, gradient, BatchNorm statistic and "
+            f"parameter after Adam against the plain route: {len(differ)} differ; "
+            f"{DP_STEPS * TRAIN_B / info['secs']:.2f} windows/s (plain "
+            f"{DP_STEPS * TRAIN_B / plain_s:.2f}); " + collectives_text(coll))
+        if differ:
+            raise AssertionError(f"data parallel (world size 1): {differ[:8]}")
+        numbers["data_parallel_ws1"] = dict(
+            windows_per_s=DP_STEPS * TRAIN_B / info["secs"],
+            plain_windows_per_s=DP_STEPS * TRAIN_B / plain_s, collectives=coll)
+
+        # 23. dense_train against the gather route (plain's first step)
+        dense, info = counted_run(torch, dev, lambda: multi_steps(
+            torch, dev, state, route_config(dense_train=True), batches[:1], draws[:1]),
+            profile=False)
+        launches["dense_train"] = info["launches"]
+        check_launches("dense_train", launches["dense_train"], {"fps": 3}, 1)
+        compare_steps(torch, "dense_train vs the gather route (B=8)", dense[0][:3],
+                      plain[0][:3], skip=skip, **STEP_BOUNDS["dense_train"])
+        log(f"dense_train: one step of {TRAIN_B} windows in {info['secs']:.3f} s, "
+            f"{TRAIN_B / info['secs']:.2f} windows/s; peak device memory "
+            + (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB" if cuda else "-"))
+        numbers["dense_train"] = dict(windows_per_s=TRAIN_B / info["secs"])
+
+        # 24b. event parallel at world size 1 over NCCL
+        events = erpc_batch_transform(torch.from_numpy(raw0), torch.from_numpy(lab0),
+                                      draws=draws0, n_out=N).events
+        ref_fwd, ref_s = event_forward(torch, dev, state, events, None)
+        emesh = pm.create_event_mesh(1, 1, dev)
+        got, fwd = counted_run(torch, dev,
+                               lambda: event_forward(torch, dev, state, events, emesh))
+        check_launches("event parallel forward (world size 1)", fwd["launches"], {}, 1)
+        check_event_forward(torch, f"event parallel forward, world size 1 over "
+                                   f"{dist.get_backend()}, B={B}", got, fwd["secs"],
+                            ref_fwd, ref_s)
+        ev1, step = counted_run(torch, dev, lambda: multi_steps(
+            torch, dev, state, route_config(dense_train=True, event_parallel=True),
+            batches[:1], draws[:1], event_mesh=emesh))
+        check_launches("event parallel step (world size 1)", step["launches"], {}, 1)
+        launches["event_parallel_ws1"] = {k: fwd["launches"][k] + step["launches"][k]
+                                          for k in step["launches"]}
+        compare_steps(torch, "event parallel dense_train step, world size 1, vs one "
+                             "process", ev1[0][:3], dense[0][:3], skip=skip,
+                      **STEP_BOUNDS["event_parallel"])
+        log(f"event parallel, world size 1: forward {B / fwd['secs']:.2f} windows/s, "
+            + collectives_text(fwd["collectives"]) + f"; dense_train step "
+            f"{TRAIN_B / step['secs']:.2f} windows/s, " + collectives_text(step["collectives"]))
+        numbers["event_parallel_ws1"] = dict(
+            forward_windows_per_s=B / fwd["secs"], forward_collectives=fwd["collectives"],
+            step_windows_per_s=TRAIN_B / step["secs"], step_collectives=step["collectives"])
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 22 and 24a. two ranks over gloo, both on the card
+    eval_rows = synthetic_ev2hands_s(n_events=65536, n_frames=DP_EVAL_BATCHES * EVAL_B,
+                                     seed=1)
+    cfg = loop_config(EVAL_B, max_eval_iters=DP_EVAL_BATCHES * EVAL_B)
+    net = TEHNet(cfg.model, device=dev)
+    net.load_state_dict(state, strict=True)
+    hands = ktrain.build_hands(cfg, synthetic=True, device=dev)
+    ref_metrics = ktrain.evaluate(ktrain.make_eval_step(net, hands, cfg, dev),
+                                  Ev2HandSReader.from_rows(*eval_rows, N), cfg, device=dev)
+    del net
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        rec = write_synthetic_ev2hands_r(os.path.join(tmp, "subject.pickle"))
+        sizes = dict(N=N, B=B, TRAIN_B=TRAIN_B, EVAL_B=EVAL_B)
+        results, ranks_s = timed(torch, dev, lambda: pm.run_ranks(
+            two_rank_work, DP_RANKS, torch.device(dev).type, sizes, state,
+            state_after(plain[0]), batches, draws, eval_rows, events, rec,
+            backend="gloo", timeout=900))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = results[0]
+    log(f"two ranks over gloo on {[r['device'] for r in results]}: {ranks_s:.1f} s with "
+        f"their start-up; gloo on CUDA tensors: " + json.dumps(r0["gloo_cuda_ops"]))
+    for r in results:
+        for key, per, units in (("steps", DET_PER_STEP, DP_STEPS),
+                                ("resync_step", DET_PER_STEP, 1),
+                                ("eval", EVAL_PER_BATCH, DP_EVAL_BATCHES),
+                                ("finetune", TRAIN_PER_STEP, 1),
+                                ("event_forward", {}, 1), ("event_step", {}, 1)):
+            check_launches(f"two ranks: {key}", r[key]["launches"], per, units)
+
+    def total(keys):
+        return {k: sum(r[key]["launches"][k] for r in results for key in keys)
+                for k in r0["steps"]["launches"]}
+
+    launches["data_parallel_ws2"] = total(("steps", "resync_step", "eval", "finetune"))
+    launches["event_parallel_ws2"] = total(("event_forward", "event_step"))
+    # f32 sums in another order (each rank's half, then the all-reduce)
+    compare_steps(torch, "data parallel, 2 ranks vs one process, step 0",
+                  r0["steps"]["runs"][0][:3], plain[0][:3], skip=skip,
+                  **STEP_BOUNDS["data_parallel"])
+    compare_steps(torch, "data parallel, 2 ranks vs one process, step 1 from the one-process "
+                         "state after step 0", r0["resync_step"]["runs"][0][:3],
+                  plain[1][:3], skip=skip, **STEP_BOUNDS["data_parallel_resync"])
+    free_second_step("data parallel, 2 ranks vs one process, step 1 from the ranks' own "
+                     "state", r0["steps"]["runs"], plain, route_config().train.learning_rate)
+    (m1, s1), (m2, s2) = ref_metrics, r0["metrics"]
+    auc_dev = max(abs(m2["auc"][k] - v) / max(abs(v), 1e-30) for k, v in m1["auc"].items())
+    log(f"sharded evaluation ({DP_EVAL_BATCHES} batches of {EVAL_B}, {EVAL_B // DP_RANKS} "
+        f"a rank): score {s2} against {s1} unsharded, AUC max rel diff {auc_dev:.3g} "
+        f"(limit 1e-5)")
+    if not (abs(s2 - s1) <= 1e-5 * abs(s1) and auc_dev <= 1e-5):
+        raise AssertionError("sharded evaluation: metrics differ from the unsharded")
+    ft = r0["finetune_losses"]
+    log("finetuning, 2 ranks, one step: " + json.dumps(ft))
+    if not all(np.isfinite(v) for v in ft.values()):
+        raise AssertionError("finetuning (2 ranks): a loss term is not finite")
+    check_event_forward(torch, f"event parallel forward, (data 1, event 2) over gloo, "
+                               f"B={B}", r0["event_out"], r0["event_forward"]["secs"],
+                        ref_fwd, ref_s)
+    compare_steps(torch, "event parallel dense_train step, 2 ranks, vs one process",
+                  r0["event_step"]["runs"][0][:3], dense[0][:3], skip=skip,
+                  **STEP_BOUNDS["event_parallel"])
+    st, ev, fs = r0["steps"], r0["eval"], r0["finetune"]
+    ef, es = r0["event_forward"], r0["event_step"]
+    for what, part in (("steps", st), ("evaluation", ev), ("finetuning", fs),
+                       ("event forward", ef), ("event step", es)):
+        log(f"two ranks, {what}: " + collectives_text(part["collectives"]))
+    numbers["data_parallel_ws2"] = dict(
+        step_windows_per_s=DP_STEPS * TRAIN_B / st["secs"], step_collectives=st["collectives"],
+        eval_windows_per_s=DP_EVAL_BATCHES * EVAL_B / ev["secs"],
+        eval_collectives=ev["collectives"],
+        finetune_windows_per_s=TRAIN_B / fs["secs"], finetune_collectives=fs["collectives"],
+        gloo_cuda_ops=r0["gloo_cuda_ops"], ranks_s=ranks_s)
+    numbers["event_parallel_ws2"] = dict(
+        forward_windows_per_s=B / ef["secs"], forward_collectives=ef["collectives"],
+        step_windows_per_s=TRAIN_B / es["secs"], step_collectives=es["collectives"])
+    log(f"phases 21-24 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, numbers
+
+
+def card_vs_cpu_limit(key):
+    """The largest abs difference allowed between an output ``key`` of the
+    card and of the port on the CPU: the ERPC events exact, the hands' 3D
+    points 1e-4, every other output 1e-3."""
+    return 0.0 if key == "events" else 1e-4 if key.endswith(("vertices", "j3d")) else 1e-3
+
+
+def split_export_phase(torch, np, dev, state, tmp):
+    """Phase 25: the serving export for two devices (data_parallel=2: the
+    one-device program at B/2) loaded on [dev, dev]; one request of B
+    windows split over both, each shard bitwise equal to the one-device
+    program on its windows, counted. Then the artifact loaded on [CPU,
+    dev], which moves the first shard's program to the CPU: that shard
+    within phase 5's card-against-CPU limits of the one-device program, the
+    other bitwise. -> (launches, numbers)."""
+    from ev2hands_tpu_torch import export as kex
+    from ev2hands_tpu_torch import train as ktrain
+    from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig
+    from ev2hands_tpu_torch.model.tehnet import TEHNet
+
+    cfg = DEFAULT_CONFIG.replace(model=ModelConfig(n_points=N))
+    net = TEHNet(cfg.model, device=dev)
+    net.load_state_dict(state, strict=True)
+    hands = ktrain.build_hands(cfg, synthetic=True, device=dev)
+    path = os.path.join(tmp, "serving_split.pt2")
+    program = kex.export_serving(net, hands, cfg, B, EXPORT_EVENTS, path=path,
+                                 data_parallel=DP_RANKS)
+    shape = tuple(program.example_inputs[0][0].shape)
+    split = kex.load_serving(path, devices=[dev] * DP_RANKS)
+    single = kex.load_serving(path)
+    e, v = real_request(np, 50, EXPORT_EVENTS)
+    u = torch.rand((B, N), generator=torch.Generator().manual_seed(51), dtype=torch.float64)
+    req = tuple(torch.from_numpy(x).to(dev) for x in (e, v)) + (u.to(dev),)
+    reset_launches()
+    out = split(*req)
+    sync(torch, dev)
+    launches = read_launches()
+    check_launches("split export", launches, EVAL_PER_BATCH, DP_RANKS)
+    b = B // DP_RANKS
+    refs = [single(*(t[i * b:(i + 1) * b] for t in req)) for i in range(DP_RANKS)]
+    for i, ref in enumerate(refs):
+        bad = [k for k, t in ref.items() if not torch.equal(out[k][i * b:(i + 1) * b], t)]
+        if bad:
+            raise AssertionError(f"split export: shard {i} differs from the one-device "
+                                 f"program in {bad}")
+    ms = {"split": cuda_ms(torch, lambda: split(*req), 5),
+          "one program": cuda_ms(torch, lambda: [single(*(t[i * b:(i + 1) * b] for t in req))
+                                                 for i in range(DP_RANKS)], 5)}
+    log(f"split export: program input {list(shape)}, {DP_RANKS} shards on "
+        f"{[str(dev)] * DP_RANKS}, each bitwise equal to the one-device program; "
+        f"{B / (ms['split'] / 1e3):.2f} windows/s split, "
+        f"{B / (ms['one program'] / 1e3):.2f} windows/s the shards one after the other "
+        f"through one loaded program (B={B}, {EXPORT_EVENTS} events a window)")
+
+    # the program moved to the CPU by load_serving
+    devices = ["cpu"] + [dev] * (DP_RANKS - 1)
+    mixed = kex.load_serving(path, devices=devices)
+    moved, secs = timed(torch, dev, lambda: mixed(*req))
+    diffs = {k: (moved[k][:b].double() - t.double()).abs().max().item()
+             for k, t in refs[0].items() if k != "seg"}
+    seg_differ = int((moved["seg"][:b] != refs[0]["seg"]).sum())
+    log(f"split export on {devices}: the CPU shard against the one-device program on the "
+        f"card, max abs diff " + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+        + f"; {seg_differ} of {refs[0]['seg'].numel()} seg labels differ; {secs:.1f} s")
+    for k, d in diffs.items():
+        limit = card_vs_cpu_limit(k)
+        if not d <= limit:
+            raise AssertionError(f"split export on {devices}: {k} differs by {d} > {limit}")
+    for i in range(1, DP_RANKS):
+        bad = [k for k, t in refs[i].items()
+               if not torch.equal(moved[k][i * b:(i + 1) * b], t)]
+        if bad:
+            raise AssertionError(f"split export on {devices}: shard {i} differs in {bad}")
+    return launches, {k: B / (v / 1e3) for k, v in ms.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2408,8 +3035,7 @@ def main() -> int:
         diffs = {}
         for key, val in ref.items():
             diffs[key] = (outs[0][key][:2].cpu() - val).abs().max().item()
-        limits = {k: (1e-4 if k.endswith(("vertices", "j3d")) else
-                      0.0 if k == "events" else 1e-3) for k in diffs}
+        limits = {k: card_vs_cpu_limit(k) for k in diffs}
         log(f"card vs CPU (2 windows, CPU run {cpu_s:.1f} s): " + ", ".join(
             f"{k} {v:.3g}" for k, v in diffs.items()))
         for k, v in diffs.items():
@@ -2467,7 +3093,23 @@ def main() -> int:
     # 20. Ev2Hands-S generation, its windows trained on and served
     datagen_launches, _ = datagen_phase(torch, np, dev, state, pipe)
 
-    # 21. the kernels line. ms, plain_ms, bound_ms and library_ms add the
+    # 21-24. multi-device: data parallel (world size 1 over NCCL, two gloo
+    # ranks on the card), dense_train, event parallel
+    mdev, mdev_numbers = multi_device_phases(torch, np, dev, state, raw0, lab0, draws0)
+
+    def add(*parts):
+        return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+    # 25. the split export
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_split_")
+    try:
+        split_launches, split_numbers = split_export_phase(torch, np, dev, state, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("multi-device numbers: " + json.dumps({**mdev_numbers,
+                                               "split_export_windows_per_s": split_numbers}))
+
+    # 26. the kernels line. ms, plain_ms, bound_ms and library_ms add the
     # calls of one pass: the three serving FPS shapes and sa1 scales of a
     # forward, the fused sa1 call of an evaluation forward, the four gathers
     # and three scatter-adds of a training step, a dense op's three sa1
@@ -2477,12 +3119,23 @@ def main() -> int:
     # loop's 6 steps and 4 evaluation batches, finetuning's 4 steps and 4
     # evaluation batches, the loaded exports' 4 + 4 requests, the demo's 7 +
     # 7 batches, the 4-channel forward's 4 requests, the generated data's 2
-    # training steps and 1 serving request), also listed by path.
+    # training steps and 1 serving request, the data-parallel steps,
+    # evaluations and finetuning step on every rank of world sizes 1 and 2,
+    # the dense_train step, the event-parallel forwards and steps (which
+    # launch no kernel: the event mesh takes FPS and the grouping to its
+    # sharded functions, as in the JAX package), the split export's 2
+    # shards; the one-process references that these are held against are
+    # not counted), also listed by path.
     by_path = {"serving": launches, "training": train_launches,
                "evaluation": eval_launches, "ops": ops_launches,
                "training_loop": loop_launches, "finetune": ft_launches,
                "export": export_launches, "demo": demo_launches,
-               "four_channel": four_launches, "datagen": datagen_launches}
+               "four_channel": four_launches, "datagen": datagen_launches,
+               "data_parallel": add(mdev["data_parallel_ws1"], mdev["data_parallel_ws2"]),
+               "dense_train": mdev["dense_train"],
+               "event_parallel": add(mdev["event_parallel_ws1"],
+                                     mdev["event_parallel_ws2"]),
+               "split_export": split_launches}
 
     def entry(name, source, replaces, rows, err, library=False):
         return {

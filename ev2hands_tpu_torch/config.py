@@ -95,6 +95,15 @@ class ModelConfig:
     # (ops/grouping.msg_fused_scales_sparse: block-diagonal stacked weights,
     # union tile activity) when every scale takes the block-sparse route.
     pallas_fused_msg: bool = False
+    # Training on the dense route too ('dense' grouping), with BatchNorm
+    # statistics weighted by each pair's multiplicity in the gather route's
+    # selected-neighbor multiset (SetAbstractionMsg._dense_train_scale). Off
+    # by default; the route of event-sharded training.
+    dense_train: bool = False
+    # Shard the event axis N of the dense set-abstraction scales and of FPS
+    # over the 'event' ranks of the mesh given as TEHNet(event_mesh=...)
+    # (parallel/event_parallel.py).
+    event_parallel: bool = False
     dropout_classifier: float = 0.3
     dropout_query: float = 0.1
     dropout_regressor: float = 0.3
@@ -130,6 +139,8 @@ class TrainConfig:
     seed: int = 0
     checkpoint_path: str = ""
     data_root: str = "data/Ev2Hands-S"
+    # Data-parallel ranks (torch.distributed processes); 1 = one device.
+    data_parallel: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

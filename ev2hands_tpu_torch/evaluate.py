@@ -31,6 +31,7 @@ from ev2hands_tpu_torch.losses import recompute_gt_joints
 from ev2hands_tpu_torch.mano.layer import ManoParams
 from ev2hands_tpu_torch.metrics import PckAccumulator, mpjpe, mpvpe
 from ev2hands_tpu_torch.model.tehnet import TEHNet, apply_mano
+from ev2hands_tpu_torch.parallel.mesh import gather_rows, local_rows, shard_batch
 
 # The evaluation configuration: all sa1 scales in one fused grouping launch.
 EVAL_CONFIG = DEFAULT_CONFIG.replace(
@@ -56,7 +57,13 @@ def make_full_eval_step(net: TEHNet, hands: Dict[str, ManoParams], cfg: Config,
     defaults to the card and raises when there is none. ``batch`` is a
     reader batch: raw windows 'events' [B, N, 4] and 'labels', per hand the
     MANO ground truth. The ERPC resample draws come from ``generator`` or
-    are given."""
+    are given.
+
+    Under the net's data mesh each rank runs its rows of the global batch
+    (the generator's draws the global batch's, this rank's rows kept) and
+    the four results are gathered, so every rank returns the global batch's;
+    a batch that does not split over the data ranks runs whole on every
+    rank, as the JAX package's evaluation does."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_full_eval_step: no CUDA device is available")
@@ -66,10 +73,14 @@ def make_full_eval_step(net: TEHNet, hands: Dict[str, ManoParams], cfg: Config,
     @torch.inference_mode()
     def step(batch: Dict, generator: Optional[torch.Generator] = None, *,
              draws: Optional[torch.Tensor] = None):
-        batch = _on(batch, device)
+        mesh = net.mesh
+        if mesh is not None and len(batch["events"]) % mesh.data_size:
+            mesh = None
+        batch, draws = _on(shard_batch(batch, mesh), device), local_rows(draws, mesh)
         erpc = erpc_batch_transform(
             batch["events"], batch["labels"], generator, draws=draws,
-            width=sensor.width, height=sensor.height, n_out=cfg.model.n_points)
+            width=sensor.width, height=sensor.height, n_out=cfg.model.n_points,
+            mesh=mesh)
         outputs = apply_mano(hands, net(erpc.events))
         targets = recompute_gt_joints(hands, {"left": batch["left"],
                                               "right": batch["right"]})
@@ -78,7 +89,7 @@ def make_full_eval_step(net: TEHNet, hands: Dict[str, ManoParams], cfg: Config,
             pred = torch.stack([outputs["left"][key], outputs["right"][key]], 1)
             gt = torch.stack([targets["left"][key], targets["right"][key]], 1)
             pairs += [pred * 1000, gt * 1000]
-        return tuple(pairs)
+        return tuple(gather_rows(p, mesh) for p in pairs)
 
     return step
 

@@ -25,6 +25,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ev2hands_tpu_torch.parallel.mesh import global_rand
+
 
 class ErpcWindow(NamedTuple):
     events: torch.Tensor  # [B, n_out, 5] normalised ERPC cloud
@@ -157,19 +159,21 @@ def draws_from_uniforms(uniforms: torch.Tensor, n_valid: torch.Tensor) -> torch.
 
 
 def resample_draws(n_valid: torch.Tensor, n_out: int,
-                   generator: torch.Generator) -> torch.Tensor:
+                   generator: torch.Generator, mesh=None) -> torch.Tensor:
     """[B, n_out] uniform draws in [0, max(n_valid, 1)) from ``generator``
     (on its own device), returned on ``n_valid``'s device:
-    ``draws_from_uniforms`` of the generator's float64 uniforms."""
-    u = torch.rand((n_valid.shape[0], n_out), generator=generator,
-                   device=generator.device, dtype=torch.float64)
+    ``draws_from_uniforms`` of the generator's float64 uniforms. Under a
+    data mesh (``parallel.mesh``) the uniforms are drawn at the global
+    batch's shape and this rank's rows kept."""
+    u = global_rand((n_valid.shape[0], n_out), generator, mesh, dtype=torch.float64)
     return draws_from_uniforms(u, n_valid)
 
 
 def _resample_indices(total: torch.Tensor, n_out: int,
                       generator: Optional[torch.Generator],
                       draws: Optional[torch.Tensor],
-                      uniforms: Optional[torch.Tensor], what: str) -> torch.Tensor:
+                      uniforms: Optional[torch.Tensor], what: str,
+                      mesh=None) -> torch.Tensor:
     """The resample indices over ``total`` [B] rows: ``draws`` as given,
     else from ``uniforms``, else from ``generator``; on ``total``'s
     device."""
@@ -177,7 +181,7 @@ def _resample_indices(total: torch.Tensor, n_out: int,
         if uniforms is not None:
             draws = draws_from_uniforms(uniforms, total)
         elif generator is not None:
-            draws = resample_draws(total, n_out, generator)
+            draws = resample_draws(total, n_out, generator, mesh)
         else:
             raise ValueError(f"{what}: pass a generator, uniforms or draws")
     B = total.shape[0]
@@ -199,31 +203,28 @@ class NoiseDraws(NamedTuple):
     n_ne: torch.Tensor   # [B, n] ints in [0, 8): negative count
 
 
-def _uniform_ints(high: torch.Tensor, shape, generator) -> torch.Tensor:
+def _uniform_ints(high: torch.Tensor, shape, generator, mesh=None) -> torch.Tensor:
     """Ints uniform in [0, high) with ``high`` broadcast over ``shape``."""
-    u = torch.rand(shape, generator=generator, device=generator.device,
-                   dtype=torch.float64).to(high.device)
+    u = global_rand(shape, generator, mesh, dtype=torch.float64).to(high.device)
     return torch.minimum((u * high).long(), high - 1)
 
 
 def noise_draws(n_valid: torch.Tensor, n_noise: int, width: int, height: int,
-                generator: torch.Generator) -> NoiseDraws:
+                generator: torch.Generator, mesh=None) -> NoiseDraws:
     """NoiseDraws from ``generator`` (on its own device), on ``n_valid``'s
-    device."""
+    device; under a data mesh, this rank's rows of the global batch's."""
     B = n_valid.shape[0]
     dev = n_valid.device
     shape = (B, n_noise)
 
     def ints(high):
-        return _uniform_ints(torch.as_tensor(high, device=dev), shape, generator)
+        return _uniform_ints(torch.as_tensor(high, device=dev), shape, generator, mesh)
 
     def unit():
-        return torch.rand(shape, generator=generator,
-                          device=generator.device).to(dev)
+        return global_rand(shape, generator, mesh).to(dev)
 
     return NoiseDraws(
-        gate=torch.rand((B,), generator=generator,
-                        device=generator.device).to(dev) < 0.5,
+        gate=global_rand((B,), generator, mesh).to(dev) < 0.5,
         xs=ints(width), ys=ints(height),
         src=ints(torch.clamp(n_valid.long(), min=1)[:, None]),
         t=unit(), ps=unit() < 0.5, n_pe=ints(8), n_ne=ints(8))
@@ -265,6 +266,7 @@ def erpc_preraster_batch_transform(
     augment: bool = False,
     noise: Optional[NoiseDraws] = None,
     uniforms: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> ErpcWindow:
     """ERPC rows already rasterised (the reference's pre-rasterised dataset
     format) -> normalised clouds [B, n_out, 5]: the noise augmentation, the
@@ -275,14 +277,16 @@ def erpc_preraster_batch_transform(
     rows and the active noise rows takes ``draws`` [B, n_out] (ints in
     [0, max(n_valid + noise_count, 1)), e.g. the JAX package's ``randint``
     draws), or ``uniforms`` [B, n_out] float64 in [0, 1) through
-    ``draws_from_uniforms``, or draws from ``generator``."""
+    ``draws_from_uniforms``, or draws from ``generator``. Under a data mesh
+    (``mesh``; the batch is this rank's rows) the generator's draws are the
+    global batch's, this rank's rows kept."""
     B, P, _ = feats.shape
     n_noise = n_out // 32
     if augment:
         if noise is None:
             if generator is None:
                 raise ValueError("erpc transform: pass a generator or noise draws")
-            noise = noise_draws(n_valid, n_noise, width, height, generator)
+            noise = noise_draws(n_valid, n_noise, width, height, generator, mesh)
         noise = NoiseDraws(*(t.to(feats.device) for t in noise))
         if tuple(noise.xs.shape) != (B, n_noise):
             raise ValueError(f"noise draws must be [{B}, {n_noise}]")
@@ -293,7 +297,7 @@ def erpc_preraster_batch_transform(
         labels = torch.cat([labels, labels.new_zeros(B, n_noise)], dim=1)
         noise_count = torch.zeros_like(n_valid)
     draws = _resample_indices(n_valid + noise_count, n_out, generator, draws,
-                              uniforms, "erpc transform")
+                              uniforms, "erpc transform", mesh)
     sampled, sampled_labels = sample_fixed(feats, labels, n_valid, P, draws)
     return ErpcWindow(events=normalize_erpc(sampled, width, height),
                       labels=sampled_labels)
@@ -329,16 +333,18 @@ def erpc_batch_transform(
     event_valid: Optional[torch.Tensor] = None,
     max_pixels: Optional[int] = None,
     uniforms: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> ErpcWindow:
     """Raw windows -> normalised ERPC clouds [B, n_out, 5]:
     ``rasterize_erpc`` (``event_valid`` and ``max_pixels`` go there), then
-    ``erpc_preraster_batch_transform`` with the draws as it takes them."""
+    ``erpc_preraster_batch_transform`` with the draws (and the data mesh)
+    as it takes them."""
     feats, pix_labels, n_valid = rasterize_erpc(
         events, labels, width, height, time_scale=time_scale,
         event_valid=event_valid, max_pixels=max_pixels)
     return erpc_preraster_batch_transform(
         feats, pix_labels, n_valid, generator, draws, width, height, n_out,
-        augment, noise, uniforms)
+        augment, noise, uniforms, mesh)
 
 
 def erpc_real_batch_transform(
@@ -351,6 +357,7 @@ def erpc_real_batch_transform(
     n_out: int = 2048,
     max_pixels: Optional[int] = None,
     uniforms: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> ErpcWindow:
     """Real-data transform: masked variable-length windows with millisecond
     timestamps, no labels and no augmentation. ``max_pixels`` bounds the
@@ -362,7 +369,7 @@ def erpc_real_batch_transform(
     return erpc_batch_transform(
         events, labels, generator, draws=draws, width=width, height=height,
         n_out=n_out, time_scale=1.0, event_valid=event_valid, max_pixels=mp,
-        uniforms=uniforms)
+        uniforms=uniforms, mesh=mesh)
 
 
 def raw_window_transform(

@@ -17,13 +17,21 @@ call, and the loaded program launches the CUDA kernels when it runs on the
 card, as the JAX artifact bakes in its Pallas kernels when exported on a
 TPU. The artifact runs on the device its weights were exported on. Unlike
 the JAX package's StableHLO, loading needs this package imported, to
-register the ops: ``load_serving`` does that. One card only: the JAX
-package's ``platforms`` and data-parallel mesh do not apply.
+register the ops: ``load_serving`` does that. The JAX package's
+``platforms`` do not apply.
+
+Data parallel: the JAX package exports one program sharded over N chips
+(``export.py:82-83``, ``:111-126``). ``torch.export`` has no sharded
+program, so ``export_serving(..., data_parallel=N)`` exports the one-card
+program at batch B / N, and ``load_serving(path, devices)`` loads it once
+a device and splits and joins the batch on the host: each shard is the
+one-card program's. Exporting with an event mesh (``export.py:93-95``) is
+not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -80,12 +88,20 @@ class _Serving(nn.Module):
 
 def export_serving(net: TEHNet, hands: Dict[str, ManoParams], cfg: Config,
                    batch_size: int, max_events: int = 8192,
-                   path: Optional[str] = None) -> torch.export.ExportedProgram:
+                   path: Optional[str] = None,
+                   data_parallel: int = 0) -> torch.export.ExportedProgram:
     """Export the serving function for ``batch_size`` windows of up to
     ``max_events`` events on the device of ``net``'s weights (and of
     ``hands``), optionally saved to ``path`` (``.pt2``). The net is put in
     eval mode. The export runs outside ``torch.inference_mode``, under
-    ``no_grad``."""
+    ``no_grad``. ``data_parallel=N`` exports the program of one of N
+    devices, batch ``batch_size / N`` (which must divide), for
+    ``load_serving(path, devices)``."""
+    if data_parallel:
+        if batch_size % data_parallel:
+            raise ValueError(f"export_serving: a batch of {batch_size} does not "
+                             f"split over {data_parallel} devices")
+        batch_size //= data_parallel
     net.eval()
     device = next(net.parameters()).device
     n = cfg.model.n_points
@@ -100,21 +116,71 @@ def export_serving(net: TEHNet, hands: Dict[str, ManoParams], cfg: Config,
     return program
 
 
-def load_serving(path: str):
+def load_serving(path: str, devices: Optional[Sequence] = None):
     """A saved artifact -> callable ``(events, valid, uniforms) -> outputs``,
     run under ``torch.inference_mode`` (the program's weights are
     parameters, so autograd would otherwise keep every activation).
-    Imports the port's kernel modules first, which registers the ops."""
+    Imports the port's kernel modules first, which registers the ops.
+
+    ``devices`` (a ``data_parallel`` export): the program loads once a
+    device, and the callable splits the batch into ``len(devices)`` equal
+    shards, runs shard i on ``devices[i]`` and joins the outputs on the
+    inputs' device. A device other than the artifact's gets the program's
+    weights, constants and device arguments moved to it."""
     import ev2hands_tpu_torch.ops.fps  # noqa: F401
     import ev2hands_tpu_torch.ops.grouping  # noqa: F401
 
-    module = torch.export.load(path).module()
+    if devices is None:
+        module = torch.export.load(path).module()
+
+        @torch.inference_mode()
+        def serve(events, valid, uniforms):
+            return module(events, valid, uniforms)
+
+        return serve
+
+    return split_serving([_on_device(torch.export.load(path).module(), torch.device(d))
+                          for d in devices], devices)
+
+
+def split_serving(programs: Sequence, devices: Sequence):
+    """Serving callables, program i on ``devices[i]`` -> one callable that
+    splits a batch into ``len(programs)`` equal shards, runs shard i on
+    program i and joins the outputs, in shard order, on the inputs'
+    device."""
+    n = len(programs)
 
     @torch.inference_mode()
     def serve(events, valid, uniforms):
-        return module(events, valid, uniforms)
+        if events.shape[0] % n:
+            raise ValueError(f"a batch of {events.shape[0]} does not split over "
+                             f"{n} devices")
+        shards = zip(*(t.chunk(n) for t in (events, valid, uniforms)))
+        outs = [p(*(t.to(d) for t in shard))
+                for p, d, shard in zip(programs, devices, shards)]
+        return {k: torch.cat([o[k].to(events.device) for o in outs]) for k in outs[0]}
 
     return serve
+
+
+def _on_device(module: nn.Module, device: torch.device) -> nn.Module:
+    """A loaded program on ``device``: its parameters, buffers and tensor
+    constants moved, and the device arguments of its graph's calls
+    rewritten. A program already there is returned as it is."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    first = next(iter(module.state_dict().values()))
+    if first.device == device:
+        return module
+    module.to(device)
+    for name, value in list(vars(module).items()):
+        if torch.is_tensor(value) and value.device != device:
+            setattr(module, name, value.to(device))
+    for node in module.graph.nodes:
+        if isinstance(node.kwargs.get("device"), torch.device):
+            node.update_kwarg("device", device)
+    module.recompile()
+    return module
 
 
 def op_counts(program: torch.export.ExportedProgram) -> Dict[str, int]:

@@ -15,7 +15,9 @@ resume. It runs on the card unless asked for the CPU.
         [--mano_dir data/models | --synthetic_mano]
 
 Step ``it`` draws from ``train.seeded_generator(seed + 2, it)``, the
-evaluation's batch ``i`` from ``seeded_generator(0, i)``.
+evaluation's batch ``i`` from ``seeded_generator(0, i)``. Data parallel
+(``--data_parallel N``, as in ``train``): each rank takes its rows of the
+global batch and of its draws, and the evaluation gathers the predictions.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from ev2hands_tpu_torch.config import DEFAULT_CONFIG, Config
+from ev2hands_tpu_torch.evaluate import DrawsFn
 from ev2hands_tpu_torch.events.erpc import erpc_real_batch_transform
 from ev2hands_tpu_torch.events.real_streams import Ev2HandRReader
 from ev2hands_tpu_torch.events.streams import Prefetcher
@@ -35,12 +38,18 @@ from ev2hands_tpu_torch.losses import CollisionContext, real_losses, total_loss
 from ev2hands_tpu_torch.mano.layer import ManoParams
 from ev2hands_tpu_torch.metrics import PckAccumulator
 from ev2hands_tpu_torch.model.tehnet import TEHNet, apply_mano
+from ev2hands_tpu_torch.parallel.mesh import gather_rows, shard_batch
 from ev2hands_tpu_torch.train import (
     TrainRun,
     add_mano_args,
+    add_parallel_args,
     check_device,
+    finish_step,
+    join_ranks,
+    loop_mesh,
     run_loop,
     seeded_generator,
+    shard_step_inputs,
     start_run,
     to_device,
 )
@@ -60,7 +69,8 @@ def make_finetune_step(net: TEHNet, hands: Dict[str, ManoParams],
     'j2d' and 'valid', and 'handedness'. ``projection_matrix`` [4, 4] is
     the camera's (``cfg.camera.projection_matrix``). The ERPC resample, FPS
     starts and dropout draw from ``generator``; ``draws`` gives the
-    resample instead."""
+    resample instead. Under the net's mesh, the batch and the draws are the
+    global batch's (``train.make_train_step``)."""
     device = check_device(device, "make_finetune_step")
     sensor = cfg.sensor
     proj = torch.as_tensor(np.asarray(projection_matrix), dtype=torch.float32,
@@ -68,24 +78,19 @@ def make_finetune_step(net: TEHNet, hands: Dict[str, ManoParams],
 
     def step(batch: Dict, generator: Optional[torch.Generator] = None, *,
              draws: Optional[torch.Tensor] = None) -> Dict[str, float]:
+        batch, draws, _ = shard_step_inputs(net.mesh, batch, draws)
         batch = to_device(batch, device)
         erpc = erpc_real_batch_transform(
             batch["events"], batch["event_valid"], generator, draws=draws,
-            width=sensor.width, height=sensor.height, n_out=cfg.model.n_points)
+            width=sensor.width, height=sensor.height, n_out=cfg.model.n_points,
+            mesh=net.mesh)
         targets = {"left": batch["left"], "right": batch["right"],
                    "handedness": batch["handedness"]}
         net.train()
         outputs = apply_mano(hands, net(erpc.events, generator))
         losses = real_losses(outputs, targets, ctx, proj, sensor.width,
-                             sensor.height, cfg.loss)
-        loss = total_loss(losses)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        names = list(losses) + ["loss"]
-        values = torch.stack([torch.as_tensor(v, dtype=loss.dtype, device=device)
-                              .detach() for v in losses.values()] + [loss.detach()])
-        return dict(zip(names, values.tolist()))
+                             sensor.height, cfg.loss, mesh=net.mesh)
+        return finish_step(net, optimizer, total_loss(losses), losses, device)
 
     return step
 
@@ -93,7 +98,10 @@ def make_finetune_step(net: TEHNet, hands: Dict[str, ManoParams],
 def make_finetune_eval_step(net: TEHNet, hands: Dict[str, ManoParams],
                             cfg: Config, device="cuda"):
     """-> ``step(events, event_valid, generator=None, *, draws=None)`` ->
-    predicted joints [B, 2, 21, 3] in mm, ``net`` in eval mode."""
+    predicted joints [B, 2, 21, 3] in mm, ``net`` in eval mode. Under the
+    net's data mesh each rank runs its rows of the global batch (the
+    generator's draws the global batch's) and every rank returns the
+    global batch's joints; a batch that does not split runs whole."""
     device = check_device(device, "make_finetune_eval_step")
     sensor = cfg.sensor
 
@@ -101,27 +109,36 @@ def make_finetune_eval_step(net: TEHNet, hands: Dict[str, ManoParams],
     def step(events, event_valid, generator: Optional[torch.Generator] = None, *,
              draws: Optional[torch.Tensor] = None) -> torch.Tensor:
         net.eval()
+        mesh = net.mesh
+        if mesh is not None and len(events) % mesh.data_size:
+            mesh = None
+        events, event_valid, draws = shard_batch((events, event_valid, draws), mesh)
         erpc = erpc_real_batch_transform(
             torch.as_tensor(events, device=device),
             torch.as_tensor(event_valid, device=device), generator, draws=draws,
-            width=sensor.width, height=sensor.height, n_out=cfg.model.n_points)
+            width=sensor.width, height=sensor.height, n_out=cfg.model.n_points,
+            mesh=mesh)
         outputs = apply_mano(hands, net(erpc.events))
-        return torch.stack([outputs["left"]["j3d"], outputs["right"]["j3d"]], 1) * 1000.0
+        pred = torch.stack([outputs["left"]["j3d"], outputs["right"]["j3d"]], 1) * 1000.0
+        return gather_rows(pred, mesh)
 
     return step
 
 
 def evaluate_finetune(eval_step, reader: Ev2HandRReader, cfg: Config,
-                      max_frames: int = 8192, device="cuda"):
+                      max_frames: int = 8192, device="cuda",
+                      draws: Optional[DrawsFn] = None):
     """PCK curves and AUC (0-50 mm over 51 steps) on ``max(1, max_frames //
     bs)`` reader batches, the ground truth the batch's joints -> (metrics,
     score = the relative AUC). Batch ``i`` draws from
-    ``seeded_generator(0, i)``."""
+    ``seeded_generator(0, i)``, or takes ``draws(i, batch)`` where that is
+    not None."""
     acc = PckAccumulator(num_steps=50, dist_max_mm=50.0)
     bs = cfg.train.eval_batch_size
     for i, batch in enumerate(reader.batches(bs, max_batches=max(1, max_frames // bs))):
+        given = draws(i, batch) if draws is not None else None
         pred = eval_step(batch["events"], batch["event_valid"],
-                         seeded_generator(0, i, device))
+                         seeded_generator(0, i, device), draws=given)
         gt = np.stack([batch["left"]["j3d"], batch["right"]["j3d"]], axis=1) * 1000.0
         acc.update(pred, torch.as_tensor(gt, device=pred.device))
         if acc.frames >= max_frames:
@@ -141,10 +158,12 @@ def finetune(
     warm-starts the weights; ``resume_dir`` (a previous finetuning run's
     ``ckpt`` directory) restores the model, Adam, the step and the best
     score of its latest checkpoint. Save-on-best scores ``val_data_root``,
-    or the training recordings (with a warning) where none is given."""
-    device = check_device(device, "finetune")
+    or the training recordings (with a warning) where none is given. With
+    ``cfg.train.data_parallel`` > 1 this process is one rank of a
+    data-parallel run."""
+    mesh, device = loop_mesh(cfg, device)
     run = start_run("finetune", cfg, synthetic_mano, checkpoint_path, resume_dir,
-                    device, base_dir, tensorboard)
+                    device, base_dir, tensorboard, mesh)
     projection = cfg.camera.projection_matrix(cfg.sensor.width, cfg.sensor.height)
     step = make_finetune_step(run.net, run.hands, run.ctx, cfg, run.optimizer,
                               projection, device)
@@ -186,13 +205,16 @@ def main(argv=None) -> TrainRun:
     add_mano_args(ap)
     ap.add_argument("--tensorboard", action="store_true")
     ap.add_argument("--device", default="cuda")
+    add_parallel_args(ap)
     args = ap.parse_args(argv)
+    join_ranks(args)
     cfg = DEFAULT_CONFIG.replace(
         mano=dataclasses.replace(DEFAULT_CONFIG.mano, model_path=args.mano_dir),
         model=dataclasses.replace(DEFAULT_CONFIG.model, n_points=args.n_points),
         train=dataclasses.replace(
             DEFAULT_CONFIG.train, batch_size=args.batch_size,
-            eval_batch_size=args.eval_batch_size, msg_iter=args.msg_iter))
+            eval_batch_size=args.eval_batch_size, msg_iter=args.msg_iter,
+            data_parallel=args.data_parallel))
     return finetune(cfg, args.data_root, args.checkpoint_path, args.max_iter,
                     args.save_iter, args.synthetic_mano,
                     val_data_root=args.val_data_root,

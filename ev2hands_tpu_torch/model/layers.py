@@ -32,6 +32,7 @@ from ev2hands_tpu_torch.ops.grouping import (
     msg_fused_scales_sparse,
     msg_scale_sparse,
     permute_columns,
+    selection_weights,
     stack_folded_scales,
     tile_activity,
 )
@@ -43,6 +44,15 @@ from ev2hands_tpu_torch.ops.pointnet import (
     square_distance,
     three_nn_interpolate,
 )
+from ev2hands_tpu_torch.parallel.event_parallel import (
+    event_sharded_fps,
+    event_sharded_msg_scale,
+    event_sharded_train_msg_scale,
+    fold_bn_dense,
+    pool_by_sign,
+    weighted_msg_sweeps,
+)
+from ev2hands_tpu_torch.parallel.mesh import DATA_AXIS, all_sum_grad, global_rand
 
 # Smallest S*N that takes the block-sparse grouping kernel: the sa1 scales
 # (512 centroids over 2048 points); sa2 and the regressor heads stay dense.
@@ -74,15 +84,21 @@ class BatchNorm(nn.Module):
     ``(x - mean) * (rsqrt(var + eps) * weight) + bias``.
 
     Eval uses the running statistics. Training uses the batch mean and the
-    biased batch variance ``mean(x * x) - mean(x)^2`` (clipped at 0) over
-    every axis but the last, and moves the running statistics to
-    ``0.9 * running + (1 - 0.9) * batch``, in place."""
+    biased batch variance, ``sum(x) / n`` and ``sum(x * x) / n - mean^2``
+    (clipped at 0) over every axis but the last, and moves the running
+    statistics to ``0.9 * running + (1 - 0.9) * batch``, in place. Under a
+    data mesh (``mesh``) the two sums and the count are the global
+    batch's: the sums are all-reduced over the data ranks, differentiably,
+    so the gradient reaches every rank's rows through the statistics, as in
+    the JAX package's one program. One rank under a mesh gives the bits of
+    no mesh."""
 
     momentum = 0.9
 
     def __init__(self, features: int, device="cuda", eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
@@ -91,30 +107,66 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            mean, var = self.finalize_sums(x.sum(dim=dims), (x * x).sum(dim=dims),
+                                           x.numel() // x.shape[-1])
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
+
+    def finalize_sums(self, total, total_sq, count: int):
+        """Batch (mean, var) from the per-channel sum, sum of squares and
+        count of this rank's rows, all-reduced over the data ranks under a
+        mesh; the running statistics move."""
+        if self.mesh is not None and self.mesh.data_group is not None:
+            C = total.shape[0]
+            both = all_sum_grad(torch.cat([total, total_sq]), self.mesh, DATA_AXIS)
+            total, total_sq = both[:C], both[C:]
+            count *= self.mesh.data_size
+        mean = total / count
+        var = torch.clamp(total_sq / count - mean * mean, min=0.0)
+        self.update_stats(mean, var)
+        return mean, var
+
+    def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Fold batch statistics into the running ones (no gradient)."""
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
     def affine(self) -> dict:
         return {"scale": self.weight, "bias": self.bias,
                 "mean": self.running_mean, "var": self.running_var}
 
 
+class PairBatchNorm(BatchNorm):
+    """The BatchNorm of a set-abstraction scale on the ``dense_train``
+    route (``model/layers.py:53 PairBatchNorm`` of the JAX package): the
+    same parameters, buffers and state-dict names as ``BatchNorm``, but it
+    normalises nothing itself. ``finalize`` turns the multiplicity-weighted
+    sums of a layer's pre-BN activations, accumulated over centroid chunks,
+    into the batch statistics and the affine ``y = a * z + b`` of the
+    normalisation."""
+
+    def finalize(self, wsum: torch.Tensor, wsqsum: torch.Tensor, count: int):
+        """(sum w z, sum w z^2, sum w) of this rank's pairs -> (a, b), the
+        running statistics moved (``finalize_sums``)."""
+        mean, var = self.finalize_sums(wsum, wsqsum, count)
+        a = self.weight / torch.sqrt(var + self.eps)
+        return a, self.bias - mean * a
+
+
 class Dropout(nn.Module):
     """flax's dropout: in training keep each element with probability
     1 - p, drawn from ``generator``, and scale the kept ones by 1/(1 - p).
-    The identity in eval or at p = 0."""
+    The identity in eval or at p = 0. Under a data mesh the draws are made
+    at the global batch's shape and each rank keeps its rows."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
+        self.mesh = None
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -123,8 +175,7 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("Dropout: training needs a generator")
         keep = 1.0 - self.p
-        u = torch.rand(x.shape, generator=generator, device=generator.device,
-                       dtype=x.dtype).to(x.device)
+        u = global_rand(x.shape, generator, self.mesh, dtype=x.dtype).to(x.device)
         return torch.where(u < keep, x / keep, 0.0)
 
 
@@ -223,7 +274,7 @@ class SetAbstractionMsg(nn.Module):
         pallas_nb: int = 256, pallas_gather: bool = False,
         pallas_gather_nb: int = 128, pallas_gather_bwd: bool = False,
         pallas_gather_wide: bool = True, rank_ball_query: bool = True,
-        pallas_fused: bool = False, device="cuda",
+        pallas_fused: bool = False, dense_train: bool = False, device="cuda",
     ):
         super().__init__()
         if grouping not in ("dense", "gather"):
@@ -242,6 +293,11 @@ class SetAbstractionMsg(nn.Module):
         self.pallas_gather_wide = pallas_gather_wide
         self.rank_ball_query = rank_ball_query
         self.pallas_fused = pallas_fused
+        self.dense_train = dense_train
+        # the data mesh (dense_train's sums) and the event mesh (FPS and the
+        # dense scales sharded over the event axis); set by TEHNet.set_mesh
+        self.mesh = None
+        self.event_mesh = None
         self.conv_blocks = nn.ModuleList()
         self.bn_blocks = nn.ModuleList()
         for mlp in self.mlps:
@@ -249,7 +305,7 @@ class SetAbstractionMsg(nn.Module):
             last = in_channel + 3
             for width in mlp:
                 convs.append(Pointwise(last, width, 2, device))
-                bns.append(BatchNorm(width, device))
+                bns.append((PairBatchNorm if dense_train else BatchNorm)(width, device))
                 last = width
             self.conv_blocks.append(convs)
             self.bn_blocks.append(bns)
@@ -292,9 +348,26 @@ class SetAbstractionMsg(nn.Module):
         if points is None:
             raise NotImplementedError("SetAbstractionMsg without point features")
         N = xyz.shape[1]
+        emesh = self.event_mesh
         if fps_idx is None:
-            fps_idx = fps_unchecked(xyz, self.npoint, fps_start)
+            if emesh is not None:
+                fps_idx = event_sharded_fps(emesh, xyz, self.npoint, fps_start)
+            else:
+                fps_idx = fps_unchecked(xyz, self.npoint, fps_start)
         new_xyz = index_points(xyz, fps_idx)
+        dense = self.grouping == "dense"
+        dense_train = self.training and self.dense_train and dense
+        if emesh is not None and (dense_train or (dense and not self.training)):
+            scale = self._event_train_scale if self.training else self._event_scale
+            return new_xyz, torch.cat([
+                scale(i, xyz, points, new_xyz, r, k) for i, (r, k) in
+                enumerate(zip(self.radius_list, self.nsample_list))], dim=-1)
+        if dense_train:
+            sqrdists = square_distance(new_xyz, xyz)
+            return new_xyz, torch.cat([
+                self._dense_train_scale(i, xyz, points, new_xyz, sqrdists, r, k)
+                for i, (r, k) in enumerate(zip(self.radius_list, self.nsample_list))],
+                dim=-1)
         if self.training or self.grouping == "gather":
             if self.use_pallas_gather(N, points.shape[-1]):
                 gathered = self._pallas_gathered(xyz, points, new_xyz)
@@ -418,6 +491,66 @@ class SetAbstractionMsg(nn.Module):
         return msg_fused_scales_sparse(stacked, sel_all, act, sections,
                                        self.pallas_nb, blocks)
 
+    def _event_scale(self, i, xyz, points, new_xyz, radius, k):
+        """Scale ``i`` in eval with the event axis sharded over the event
+        ranks: eval BatchNorm folded into the weights
+        (``event_parallel.fold_bn_dense``), the pair work on this rank's
+        N / E points."""
+        layers = [fold_bn_dense(c.kernel, c.bias, bn.weight, bn.bias, bn.running_mean,
+                                bn.running_var, bn.eps)
+                  for c, bn in zip(self.conv_blocks[i], self.bn_blocks[i])]
+        return event_sharded_msg_scale(self.event_mesh, xyz, points, new_xyz, layers,
+                                       radius, k, s_chunk=self.dense_chunk)
+
+    def _event_train_scale(self, i, xyz, points, new_xyz, radius, k):
+        """Scale ``i`` in training with the event axis sharded: the
+        differentiable, multiplicity-weighted route of ``_dense_train_scale``
+        (``event_parallel.event_sharded_train_msg_scale``); its global batch
+        statistics move the running ones."""
+        convs, bns = self.conv_blocks[i], self.bn_blocks[i]
+        pooled, stats = event_sharded_train_msg_scale(
+            self.event_mesh, xyz, points, new_xyz,
+            [(c.kernel, c.bias) for c in convs], [(bn.weight, bn.bias) for bn in bns],
+            radius, k, s_chunk=self.dense_chunk, eps=bns[0].eps)
+        for bn, (mean, var) in zip(bns, stats):
+            bn.update_stats(mean, var)
+        return pooled
+
+    def _dense_train_scale(self, i, xyz, points, new_xyz, sqrdists, radius, k):
+        """Scale ``i`` in training on the dense route, with the gather
+        route's BatchNorm statistics (``model/layers.py:639`` of the JAX
+        package).
+
+        Each selected (centroid, point) pair carries its multiplicity in the
+        gather route's neighbor multiset (``selection_weights``: 1, plus
+        ``k - count`` on the first in-radius point when the ball underfills,
+        ``k`` on point 0 for an empty ball), so every BatchNorm's weighted
+        mean and variance over all pairs equal the gather route's over its
+        K slots (sum w = B * S * k). A layer's statistics gate the next
+        layer's input, so the chain runs as L sweeps over centroid chunks:
+        sweep l recomputes layers < l with their final affines and sums
+        layer l's pre-BN activations. The last sweep also keeps the masked
+        max and min of the last pre-BN layer; BatchNorm's affine is
+        monotone, so the pooled value is ``relu(a * max + b)`` where
+        a >= 0 and ``relu(a * min + b)`` elsewhere. Chunks are
+        checkpointed: the backward holds one [B, chunk, N, C] tile a layer.
+        Under a data mesh the weighted sums are all-reduced over the data
+        ranks."""
+        convs, bns = self.conv_blocks[i], self.bn_blocks[i]
+        B, N, _ = xyz.shape
+        S, D = new_xyz.shape[1], points.shape[-1]
+        mask = sqrdists <= radius ** 2
+        rank = torch.cumsum(mask, dim=-1) - mask.long()
+        at0 = torch.arange(N, device=xyz.device) == 0
+        sel, w = selection_weights(mask, rank, mask.sum(-1), k, at0, xyz.dtype)
+        u = convs[0](torch.cat([points, xyz], dim=-1))
+        v = convs[0](torch.cat([xyz.new_zeros(B, S, D), new_xyz], dim=-1))
+        mx, mn, affines = weighted_msg_sweeps(
+            u, v, convs[0].bias, sel, w, [(c.kernel, c.bias) for c in convs[1:]],
+            lambda l, wsum, wsqsum: bns[l].finalize(wsum, wsqsum, B * S * k),
+            self.dense_chunk)
+        return pool_by_sign(mx, mn, *affines[-1])
+
     def _dense_scale(self, i, xyz, points, new_xyz, sqrdists, radius, k):
         """Masked dense pairs in centroid chunks. The first conv splits into
         a per-point half u_n = conv0([f_n, x_n]) and a per-centroid half
@@ -438,6 +571,17 @@ class SetAbstractionMsg(nn.Module):
             m = sel[:, s0:s0 + chunk, :, None]
             outs.append(torch.where(m, h, -torch.inf).amax(dim=2))
         return torch.cat(outs, dim=1)
+
+
+def set_mesh(module: nn.Module, mesh=None, event_mesh=None) -> None:
+    """Put every BatchNorm, Dropout and set-abstraction layer of ``module``
+    under the data mesh ``mesh``; the set-abstraction layers also under
+    ``event_mesh`` (None: no event sharding)."""
+    for m in module.modules():
+        if isinstance(m, (BatchNorm, Dropout)):
+            m.mesh = mesh
+        elif isinstance(m, SetAbstractionMsg):
+            m.mesh, m.event_mesh = mesh, event_mesh
 
 
 class SetAbstractionAll(nn.Module):

@@ -11,6 +11,15 @@ regressor heads. Training (``net.train()``) draws a random FPS start per
 layer unless ``fps_deterministic`` is set, with the JAX package's sharing
 rule for the heads, and dropout; every draw comes from the generator given
 to ``forward``.
+
+Multi-device (``parallel/``): under a data mesh (``TEHNet(mesh=...)`` or
+``set_mesh``) each rank runs its rows of the global batch, BatchNorm reduces
+its statistics over the data ranks and every draw is made at the global
+batch's shape, this rank's rows kept. With ``cfg.event_parallel`` and an
+event mesh (``TEHNet(event_mesh=...)``), FPS and the dense set-abstraction
+scales of sa1, sa2 and the heads' sa1 shard the event axis over the event
+ranks (eval, and training with ``dense_train``); the event mesh's data ranks
+are the data mesh.
 """
 
 from __future__ import annotations
@@ -32,8 +41,11 @@ from ev2hands_tpu_torch.model.layers import (
     SetAbstractionAll,
     SetAbstractionMsg,
     attention_block,
+    set_mesh,
 )
 from ev2hands_tpu_torch.ops.fps import fps_unchecked
+from ev2hands_tpu_torch.parallel.event_parallel import event_sharded_fps
+from ev2hands_tpu_torch.parallel.mesh import Mesh, global_randint
 
 # Centroids of the regressor heads' sa1; one FPS draw of this size feeds both
 # in eval.
@@ -79,7 +91,8 @@ class TEHNet(nn.Module):
     """events [B, N, C_in] normalised ERPC cloud -> segmentation logits
     [B, N, num_classes] and per-hand MANO parameters."""
 
-    def __init__(self, cfg: ModelConfig = ModelConfig(), device="cuda"):
+    def __init__(self, cfg: ModelConfig = ModelConfig(), device="cuda",
+                 mesh: Optional[Mesh] = None, event_mesh: Optional[Mesh] = None):
         super().__init__()
         self.cfg = cfg
 
@@ -92,7 +105,7 @@ class TEHNet(nn.Module):
                 pallas_gather_bwd=cfg.pallas_gather_bwd,
                 pallas_gather_wide=cfg.pallas_gather_wide,
                 rank_ball_query=cfg.rank_ball_query,
-                pallas_fused=cfg.pallas_fused_msg,
+                pallas_fused=cfg.pallas_fused_msg, dense_train=cfg.dense_train,
             )
 
         self.sa1 = SetAbstractionMsg(
@@ -121,20 +134,32 @@ class TEHNet(nn.Module):
                    **sa_options(cfg.grouping_regressor, cfg.regressor_dense_chunk))
         self.left_mano_regressor = ManoRegressor(**reg)
         self.right_mano_regressor = ManoRegressor(**reg)
+        self.set_mesh(mesh, event_mesh)
+
+    def set_mesh(self, mesh: Optional[Mesh] = None,
+                 event_mesh: Optional[Mesh] = None) -> "TEHNet":
+        """Run under a data mesh (``mesh``) or a (data, event) mesh
+        (``event_mesh``, which shards the event axis when
+        ``cfg.event_parallel`` is set; its data ranks are the data mesh), or
+        on one device (neither)."""
+        self.mesh = event_mesh if event_mesh is not None else mesh
+        self.event_mesh = event_mesh if self.cfg.event_parallel else None
+        set_mesh(self, self.mesh, self.event_mesh)
+        return self
 
     def fps_starts(self, B: int, N: int,
                    generator: Optional[torch.Generator]) -> list:
         """The FPS start rows [B] of sa1, sa2 and the two regressor heads
         (None = index 0). Training draws them unless ``fps_deterministic``;
-        with ``shared_head_fps`` one draw serves both heads."""
+        with ``shared_head_fps`` one draw serves both heads. Under a data
+        mesh, B is this rank's rows and the draws the global batch's."""
         if not self.training or self.cfg.fps_deterministic:
             return [None] * 4
         if generator is None:
             raise ValueError("TEHNet: training with random FPS starts needs a generator")
 
         def draw(n):
-            return torch.randint(0, n, (B,), generator=generator,
-                                 device=generator.device, dtype=torch.int32)
+            return global_randint(n, (B,), generator, self.mesh, dtype=torch.int32)
 
         starts = [draw(N), draw(self.sa1.npoint), draw(N)]
         starts.append(starts[2] if self.cfg.shared_head_fps else draw(N))
@@ -170,7 +195,10 @@ class TEHNet(nn.Module):
         # one FPS for both heads when they start alike (eval, deterministic
         # training) or share a draw; independent draws otherwise
         reg_fps_idx = None
-        if shared_head:
+        if shared_head and self.event_mesh is not None:
+            reg_fps_idx = event_sharded_fps(self.event_mesh, l0_xyz, REGRESSOR_NPOINT,
+                                            starts[2])
+        elif shared_head:
             reg_fps_idx = fps_unchecked(l0_xyz, REGRESSOR_NPOINT, starts[2])
         left = self.left_mano_regressor(l0_xyz, left_features, reg_fps_idx,
                                         starts[2], generator)

@@ -25,6 +25,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ev2hands_tpu_torch.parallel.mesh import DATA_AXIS, all_sum
+
 
 def build_two_hand_faces(faces_left: np.ndarray, faces_right: np.ndarray,
                          n_verts: int = 778) -> np.ndarray:
@@ -177,9 +179,12 @@ def collision_loss(
     max_pairs: int = 128,
     sigma: float = 0.5,
     weight: float = 1e2,
+    mesh=None,
 ) -> torch.Tensor:
     """The mean positive penetration over the batch's colliding pairs,
-    times ``weight``; 0 when nothing collides."""
+    times ``weight``; 0 when nothing collides. Under a data mesh
+    (``parallel/mesh.py``), this rank's share: its sum over the global
+    batch's count of positive penetrations."""
     verts = torch.cat([verts_left, verts_right], dim=1)   # [B, 2V, 3]
     if verts.is_cuda:
         triangles = verts[:, faces]                         # [B, T, 3, 3]
@@ -189,7 +194,7 @@ def collision_loss(
             B, T, 3, 3)
     cp = find_collision_pairs(triangles.detach(), adjacency, max_pairs)
     pen = penetration_penalty(triangles, cp.pairs, cp.intersecting, sigma)
-    count = (pen > 0).sum().to(pen.dtype)
+    count = all_sum((pen > 0).sum().to(pen.dtype), mesh, DATA_AXIS)
     return torch.where(count > 0, pen.sum() / torch.clamp(count, min=1.0) * weight,
                        0.0)
 

@@ -122,6 +122,26 @@ def _first_in_radius(mask: torch.Tensor, nsample: int) -> torch.Tensor:
     return sel.float()
 
 
+def selection_weights(mask: torch.Tensor, rank: torch.Tensor, total: torch.Tensor,
+                      nsample: int, at0: torch.Tensor, dtype) -> Tuple[torch.Tensor,
+                                                                     torch.Tensor]:
+    """The gather route's neighbor multiset as pair weights, for the
+    ``dense_train`` statistics -> (selection [B, S, n] bool, weights
+    [B, S, n]). ``mask`` is the in-radius mask, ``rank`` each point's
+    exclusive rank among the in-radius points of its row, ``total`` [B, S]
+    their count, ``at0`` [n] marks point 0 (these may be one shard's, with
+    the global ranks and counts). A selected point weighs 1, the first
+    in-radius point ``nsample - total`` more when the ball underfills (the
+    ball query's backfill), and point 0 ``nsample`` for an empty ball."""
+    sel = mask & (rank < nsample)
+    first = mask & (rank == 0)
+    fallback = (total == 0)[..., None] & at0
+    sel = sel | fallback
+    w = sel.to(dtype) + first.to(dtype) * torch.clamp(
+        nsample - total, min=0)[..., None].to(dtype)
+    return sel, torch.where(fallback, float(nsample), w)
+
+
 def ball_selection_mask(
     xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float, nsample: int
 ) -> torch.Tensor:

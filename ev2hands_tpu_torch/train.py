@@ -9,11 +9,22 @@ a ``Prefetcher``, losses logged every ``msg_iter`` steps, an evaluation every
 ``.pth`` file or a checkpoint directory, and resume. It runs on the card
 unless asked for the CPU. The hands are the MANO pickles under
 ``--mano_dir`` (``cfg.mano.model_path``) or, with ``--synthetic_mano``,
-the synthetic models (``build_hands``); multi-device runs are not ported.
+the synthetic models (``build_hands``).
 
     python -m ev2hands_tpu_torch.train --data_root data/Ev2Hands-S \
         [--mano_dir data/models | --synthetic_mano] [--device cpu] \
         [--max_iter 100] [--resume_dir DIR]
+
+Data parallel (``TrainConfig.data_parallel``, ``--data_parallel N``): N
+processes, one a device, each with its rows of the global batch
+(``parallel/mesh.py``): BatchNorm statistics and the losses' denominators
+are the global batch's, every draw is the global batch's with this rank's
+rows kept, the gradients are summed over the ranks, so N ranks take the
+one-device step; the evaluation shards its batches and gathers the
+predictions; only rank 0 writes the logs and checkpoints. Start it with
+``torchrun --nproc_per_node N -m ev2hands_tpu_torch.train --data_parallel
+N ...``, or pass ``--coordinator host:port --num_processes N --process_id
+i`` to each process.
 
 Randomness: the step ``it`` draws from a generator seeded by ``(seed + 1,
 it)`` and the evaluation's batch ``i`` from one seeded by ``(0, i)``
@@ -26,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
@@ -45,6 +57,17 @@ from ev2hands_tpu_torch.model.tehnet import TEHNet, apply_mano
 from ev2hands_tpu_torch.ops.collision import (
     build_adjacency_mask,
     build_two_hand_faces,
+)
+from ev2hands_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    all_sum,
+    all_sum_grads,
+    create_mesh,
+    initialize_distributed,
+    local_rows,
+    replicate,
+    shard_batch,
 )
 from ev2hands_tpu_torch.utils.logging import RunLogger
 
@@ -111,11 +134,36 @@ def forward_losses(
     """The loss of one batch of ERPC clouds: ``net`` (in the mode it is in)
     -> MANO -> ``mano_losses`` -> (total, loss dict). ``targets`` carries
     'left', 'right', 'handedness' and the per-event labels as
-    'class_logits'."""
+    'class_logits'. Under the net's data mesh, this rank's shares."""
     outputs = apply_mano(hands, net(events, generator))
     losses = mano_losses(outputs, targets, hands, ctx, cfg.loss,
-                         n_pose_comps=cfg.mano.n_pose_comps)
+                         n_pose_comps=cfg.mano.n_pose_comps, mesh=net.mesh)
     return total_loss(losses), losses
+
+
+def shard_step_inputs(mesh: Optional[Mesh], batch: Dict, draws=None, noise=None):
+    """This rank's rows of a global batch and of the draws given for it."""
+    if mesh is None:
+        return batch, draws, noise
+    return (shard_batch(batch, mesh), local_rows(draws, mesh),
+            None if noise is None else shard_batch(noise, mesh))
+
+
+def finish_step(net, optimizer, loss: torch.Tensor, losses: Dict,
+                device) -> Dict[str, float]:
+    """Backward, the gradients summed over the ranks of the net's mesh
+    (divided by its event ranks, whose losses are copies), Adam -> the loss
+    terms with the total as 'loss', the global batch's."""
+    mesh = net.mesh
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    if mesh is not None:
+        all_sum_grads(list(net.parameters()), mesh, 1.0 / mesh.event_size)
+    optimizer.step()
+    names = list(losses) + ["loss"]
+    values = torch.stack([torch.as_tensor(v, dtype=loss.dtype, device=device)
+                          .detach() for v in losses.values()] + [loss.detach()])
+    return dict(zip(names, all_sum(values, mesh, DATA_AXIS).tolist()))
 
 
 def to_device(x, device):
@@ -149,31 +197,32 @@ def make_train_step(
 
     A step mutates in place: ``net``'s parameters (the Adam update), its
     BatchNorm running statistics (the forward in training mode) and the
-    optimizer's state."""
+    optimizer's state.
+
+    Under the net's mesh (``TEHNet.set_mesh``) ``batch``, ``draws`` and
+    ``noise`` are the global batch's, the same on every rank; each rank
+    takes its rows, the generator's draws are the global batch's, and the
+    step is the one-device step of the global batch (``finish_step``)."""
     device = check_device(device, "make_train_step")
     sensor = cfg.sensor
 
     def step(batch: Dict, generator: Optional[torch.Generator] = None, *,
              draws: Optional[torch.Tensor] = None,
              noise: Optional[NoiseDraws] = None) -> Dict[str, float]:
+        batch, draws, noise = shard_step_inputs(net.mesh, batch, draws, noise)
         batch = to_device(batch, device)
         erpc = erpc_batch_transform(
             batch["events"], batch["labels"], generator, draws=draws,
             width=sensor.width, height=sensor.height,
-            n_out=cfg.model.n_points, augment=augment, noise=noise)
+            n_out=cfg.model.n_points, augment=augment, noise=noise, mesh=net.mesh)
         targets = {"left": batch["left"], "right": batch["right"],
                    "handedness": batch["handedness"],
                    "class_logits": erpc.labels}
         net.train()
-        loss, losses = forward_losses(net, hands, ctx, cfg, erpc.events,
-                                      targets, generator)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        names = list(losses) + ["loss"]
-        values = torch.stack([torch.as_tensor(v, dtype=loss.dtype, device=device)
-                              .detach() for v in losses.values()] + [loss.detach()])
-        return dict(zip(names, values.tolist()))
+        # the float32 ERPC cloud in the weights' dtype (a float64 net in tests)
+        events = erpc.events.to(net.classifier[0].weight.dtype)
+        loss, losses = forward_losses(net, hands, ctx, cfg, events, targets, generator)
+        return finish_step(net, optimizer, loss, losses, device)
 
     return step
 
@@ -184,7 +233,8 @@ def make_eval_step(net: TEHNet, hands: Dict[str, ManoParams], cfg: Config,
     ground-truth joints), each [B, 2, 21, 3] in mm: the joints of
     ``evaluate.make_full_eval_step`` (no second forward), with ``net`` put
     in eval mode at every call, so that it can run between training
-    steps."""
+    steps. Under the net's data mesh each rank evaluates its rows and every
+    rank returns the global batch's joints."""
     full = make_full_eval_step(net, hands, cfg, device)
 
     def step(batch: Dict, generator: Optional[torch.Generator] = None, *,
@@ -255,7 +305,7 @@ def run_loop(step, batches: Iterator[Dict], evaluate_fn: Callable[[], Tuple[Dict
     (asynchronously; joined before returning, and the log closed).
     -> (steps done, best score, timings)."""
     logger, start_it, best_score = run.logger, run.step, run.best_score
-    ckptr = Checkpointer(f"{logger.run_dir}/ckpt")
+    ckptr = Checkpointer(f"{logger.run_dir}/ckpt") if logger.run_dir else None
     loss_log: Dict[str, float] = {}
     losses: Dict[str, float] = {}
     loader_s = eval_s = save_s = 0.0
@@ -289,13 +339,15 @@ def run_loop(step, batches: Iterator[Dict], evaluate_fn: Callable[[], Tuple[Dict
             logger.scalar("relative_auc", score, it)
             if score > best_score:
                 best_score = score
-                t0 = time.perf_counter()
-                ckptr.save(it, run.net, run.optimizer, best_score)
-                save_s += time.perf_counter() - t0
-                saves += 1
-                logger.info(f"saved best checkpoint at {it}")
+                if ckptr is not None:
+                    t0 = time.perf_counter()
+                    ckptr.save(it, run.net, run.optimizer, best_score)
+                    save_s += time.perf_counter() - t0
+                    saves += 1
+                    logger.info(f"saved best checkpoint at {it}")
     t0 = time.perf_counter()
-    ckptr.wait()  # join the save in flight
+    if ckptr is not None:
+        ckptr.wait()  # join the save in flight
     save_s += time.perf_counter() - t0
     stats = LoopStats(it - start_it, time.perf_counter() - glob_st, loader_s,
                       eval_s, save_s, evals, saves, losses)
@@ -304,6 +356,24 @@ def run_loop(step, batches: Iterator[Dict], evaluate_fn: Callable[[], Tuple[Dict
                 f"({stats.evals}), saving {stats.save_s:.2f} s ({stats.saves})")
     logger.close()
     return it, best_score, stats
+
+
+class QuietLogger:
+    """The run logger of a rank other than 0: it writes nothing."""
+
+    run_dir = None
+
+    def info(self, msg: str):
+        pass
+
+    def scalar(self, tag: str, value: float, step: int):
+        pass
+
+    def log_run_config(self, cfg, net=None):
+        pass
+
+    def close(self):
+        pass
 
 
 class RunStart(NamedTuple):
@@ -321,17 +391,20 @@ class RunStart(NamedTuple):
 
 def start_run(name: str, cfg: Config, synthetic_mano: bool, checkpoint_path: str,
               resume_dir: Optional[str], device, base_dir: str,
-              tensorboard: bool) -> RunStart:
+              tensorboard: bool, mesh: Optional[Mesh] = None) -> RunStart:
     """The set-up that training and finetuning share: the run directory
     ``{base_dir}/{name}_<stamp>`` with the config and the model, the model
     and Adam on ``device``, warm-started from ``checkpoint_path`` (a
     ``.pth`` file or a checkpoint directory) and then resumed from the
     latest checkpoint in ``resume_dir`` (model, Adam, step, best score)
     where it has one. The hands are the synthetic MANO models with
-    ``synthetic_mano``, else the pickles under ``cfg.mano.model_path``."""
+    ``synthetic_mano``, else the pickles under ``cfg.mano.model_path``.
+    Under a data mesh every rank starts alike and then takes rank 0's
+    weights; only rank 0 has a run directory."""
     hands = build_hands(cfg, synthetic_mano, device)
-    logger = RunLogger(name, base_dir, tensorboard)
-    net = TEHNet(cfg.model, device=device)
+    logger = (RunLogger(name, base_dir, tensorboard)
+              if mesh is None or mesh.is_main else QuietLogger())
+    net = TEHNet(cfg.model, device=device, mesh=mesh)
     optimizer = make_optimizer(net.parameters(), cfg.train)
     logger.log_run_config(cfg, net)
     if checkpoint_path:
@@ -345,6 +418,7 @@ def start_run(name: str, cfg: Config, synthetic_mano: bool, checkpoint_path: str
             step, best_score = blob["step"], blob["max_eval_score"]
             logger.info(f"resumed from {resume_dir} at step {step} "
                         f"(best score {best_score})")
+    replicate(net, mesh)
     return RunStart(logger, hands, build_collision_context(hands), net, optimizer,
                     step, best_score)
 
@@ -376,6 +450,17 @@ def open_train_source(cfg: Config, train_data: Optional[Rows] = None
     return reader.batches(bs, shuffle=True), "python"
 
 
+def loop_mesh(cfg: Config, device) -> Tuple[Optional[Mesh], torch.device]:
+    """The data mesh of ``cfg.train.data_parallel`` ranks (None for one)
+    and this rank's device. The ranks must have joined their process group
+    (``initialize_distributed``)."""
+    device = check_device(device, "the training loop")
+    if cfg.train.data_parallel <= 1:
+        return None, device
+    mesh = create_mesh(cfg.train.data_parallel, device)
+    return mesh, mesh.device
+
+
 def train(cfg: Config = DEFAULT_CONFIG, synthetic_mano: bool = False,
           max_iter: Optional[int] = None, resume_dir: Optional[str] = None, *,
           device="cuda", train_data: Optional[Rows] = None,
@@ -387,10 +472,12 @@ def train(cfg: Config = DEFAULT_CONFIG, synthetic_mano: bool = False,
     (a previous run's ``ckpt`` directory) restores the model, Adam, the step
     and the best score of its latest checkpoint. The splits are
     ``{data_root}/train`` and ``/val``, or the rows given as ``train_data``
-    and ``val_data``."""
-    device = check_device(device, "train")
+    and ``val_data``. With ``cfg.train.data_parallel`` > 1 this process is
+    one rank of a data-parallel run: every rank reads the same global
+    batches and takes its rows."""
+    mesh, device = loop_mesh(cfg, device)
     run = start_run("train", cfg, synthetic_mano, cfg.train.checkpoint_path,
-                    resume_dir, device, base_dir, tensorboard)
+                    resume_dir, device, base_dir, tensorboard, mesh)
     step = make_train_step(run.net, run.hands, run.ctx, cfg, run.optimizer,
                            device=device)
     eval_step = make_eval_step(run.net, run.hands, cfg, device)
@@ -407,6 +494,24 @@ def train(cfg: Config = DEFAULT_CONFIG, synthetic_mano: bool = False,
         save_iter=cfg.train.save_iter, msg_iter=cfg.train.msg_iter, device=device)
     return TrainRun(run.net, run.optimizer, it, best_score, run.logger.run_dir, name,
                     stats)
+
+
+def add_parallel_args(ap: argparse.ArgumentParser) -> None:
+    """The CLIs' data-parallel flags: ``--data_parallel`` and the three
+    multi-host ones (all three, or torchrun's environment)."""
+    ap.add_argument("--data_parallel", type=int, default=1,
+                    help="data-parallel ranks (processes, one a device)")
+    ap.add_argument("--coordinator", default=None, help="host:port of process 0")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
+
+
+def join_ranks(args) -> None:
+    """Join the process group of ``add_parallel_args``' flags, or of
+    torchrun's environment; nothing for one process."""
+    if args.num_processes or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                               backend="gloo" if args.device == "cpu" else None)
 
 
 def main(argv=None) -> TrainRun:
@@ -428,7 +533,9 @@ def main(argv=None) -> TrainRun:
     add_mano_args(ap)
     ap.add_argument("--tensorboard", action="store_true")
     ap.add_argument("--device", default="cuda")
+    add_parallel_args(ap)
     args = ap.parse_args(argv)
+    join_ranks(args)
     cfg = DEFAULT_CONFIG.replace(
         mano=dataclasses.replace(DEFAULT_CONFIG.mano, model_path=args.mano_dir),
         model=dataclasses.replace(DEFAULT_CONFIG.model, n_points=args.n_points),
@@ -436,7 +543,8 @@ def main(argv=None) -> TrainRun:
             DEFAULT_CONFIG.train, data_root=args.data_root,
             batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,
             checkpoint_path=args.checkpoint_path, save_iter=args.save_iter,
-            msg_iter=args.msg_iter, max_eval_iters=args.max_eval_iters))
+            msg_iter=args.msg_iter, max_eval_iters=args.max_eval_iters,
+            data_parallel=args.data_parallel))
     return train(cfg, synthetic_mano=args.synthetic_mano, max_iter=args.max_iter,
                  resume_dir=args.resume_dir, device=args.device,
                  tensorboard=args.tensorboard)

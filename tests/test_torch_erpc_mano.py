@@ -154,6 +154,7 @@ def test_port_imports_no_jax():
         "import ev2hands_tpu_torch.datagen.erpc_writer\n"
         "import ev2hands_tpu_torch.datagen.visualize\n"
         "import ev2hands_tpu_torch.utils.device, ev2hands_tpu_torch.utils.profiling\n"
+        "import ev2hands_tpu_torch.parallel.mesh, ev2hands_tpu_torch.parallel.event_parallel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('h5py', 'cv2')]\n"
         "assert not bad, bad\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
