@@ -20,9 +20,21 @@ comparison, and the bounds that bounds_from_readings derives from them
   routes whose sums run in another order, the floor of that state. Where
   it breaks dense_train's own bounds the state is ill-conditioned for
   float32 (a gradient that rounding alone turns around), and its
-  data_parallel_resync reading is listed but left out of that bound.
+  data_parallel_resync reading is listed but left out of that bound;
+* bf16_train: the first step with ModelConfig.bf16_train against the float32
+  step (the kernel route);
+* uv_split: the first step with uv_split_gather on the index_points gather
+  route (pallas_gather off) against that route's step;
+* bf16_trajectory: chip_smoke.TRAJECTORY_STEPS bf16_train steps on one
+  batch with the same draws against the float32 steps: the largest
+  relative difference of a step's total loss, and the mean of the last four
+  losses over the first four's in each precision (chip_smoke.py bounds only
+  bf16's, below 1; the readings stand beside TRAJECTORY_STEPS).
 
-    python chip_smoke_tolerances.py [--seeds 8]
+    python chip_smoke_tolerances.py [--seeds 8] [--only bf16_train,bf16_trajectory]
+
+``--only`` makes the named comparisons alone (the two-rank ones need none
+of the others).
 
 One card holds both ranks.
 """
@@ -89,7 +101,10 @@ def sweep_rank(cases):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", type=int, default=8)
+    ap.add_argument("--only", default="",
+                    help="comma-separated comparisons to make (default: all)")
     args = ap.parse_args()
+    only = set(filter(None, args.only.split(",")))
 
     import numpy as np
     import torch
@@ -109,9 +124,18 @@ def main() -> int:
     dev = torch.device("cuda")
     _build.build(_build.KERNELS)
     skip = batchnorm_cancelled_biases(TEHNet(cs.route_config().model, device="cpu"))
-    readings = {k: [] for k in list(cs.STEP_BOUNDS) + ["dense_train_resync"]}
+    kinds = list(cs.STEP_BOUNDS) + ["dense_train_resync", "bf16_trajectory"]
+    if only - set(kinds):
+        raise SystemExit(f"--only: unknown comparisons {sorted(only - set(kinds))}")
+    wants = {k for k in kinds if not only or k in only}
+    readings = {k: [] for k in wants - {"bf16_trajectory"}}
+    trajectories = []
+    one_process = wants & {"dense_train", "event_parallel", "dense_train_resync"}
+    two_ranks = wants & {"data_parallel", "data_parallel_resync", "event_parallel"}
 
     def reading(kind, name, a, b):
+        if kind not in readings:
+            return
         r = cs.compare_steps(torch, name, a, b, loss_rtol=float("inf"), cos_min=-1.0,
                              norm_tol=float("inf"), buf_rtol=float("inf"), skip=skip)
         readings[kind].append(dict(r, name=name))
@@ -127,6 +151,28 @@ def main() -> int:
                                  ModelConfig(n_points=cs.N))
             batches, draws = cs.dp_inputs(torch, np, seed)
             plain, _ = cs.multi_steps(torch, dev, state, cs.route_config(), batches, draws)
+            if "bf16_train" in wants:
+                bf16, _ = cs.multi_steps(torch, dev, state,
+                                         cs.route_config(bf16_train=True), batches[:1],
+                                         draws[:1])
+                reading("bf16_train", f"seed {seed}: bf16_train vs float32", bf16[0][:3],
+                        plain[0][:3])
+            if "bf16_trajectory" in wants:
+                bf16, f32 = (cs.loss_trajectory(torch, dev, state,
+                                                cs.route_config(bf16_train=b), batches[0],
+                                                draws[0]) for b in (True, False))
+                dev_hi, fall = cs.trajectory_reading(bf16, f32)
+                trajectories.append(dict(seed=seed, dev=dev_hi, fall=fall,
+                                         fall_float32=cs.fall(f32), bf16=bf16, float32=f32))
+                cs.log(json.dumps(trajectories[-1]))
+            if "uv_split" in wants:
+                index, uv = (cs.multi_steps(torch, dev, state, cs.route_config(
+                    pallas_gather=False, pallas_gather_bwd=False, uv_split_gather=u),
+                    batches[:1], draws[:1])[0] for u in (False, True))
+                reading("uv_split", f"seed {seed}: uv_split_gather vs the index route",
+                        uv[0][:3], index[0][:3])
+            if not one_process and not two_ranks:
+                continue
             dense, _ = cs.multi_steps(torch, dev, state, cs.route_config(dense_train=True),
                                       batches[:1], draws[:1])
             reading("dense_train", f"seed {seed}: dense_train vs the gather route",
@@ -147,17 +193,24 @@ def main() -> int:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
 
-    ranks = pm.run_ranks(sweep_rank, cs.DP_RANKS, cases, backend="gloo", timeout=1200)
+    ranks = (pm.run_ranks(sweep_rank, cs.DP_RANKS, cases, backend="gloo", timeout=1200)
+             if two_ranks else [[]])
     for seed, ((first, second, event), (plain, dense)) in enumerate(zip(ranks[0], refs)):
         reading("data_parallel", f"seed {seed}: 2 ranks, step 0", first, plain[0][:3])
         reading("data_parallel_resync", f"seed {seed}: 2 ranks, step 1 from the one-process "
                                         "state", second, plain[1][:3])
-        worst = readings["data_parallel_resync"][-1]["cos_key"]
-        readings["data_parallel_resync"][-1]["step0_norm"] = plain[0][1][worst].norm().item()
+        if "data_parallel_resync" in readings:
+            worst = readings["data_parallel_resync"][-1]["cos_key"]
+            readings["data_parallel_resync"][-1]["step0_norm"] = \
+                plain[0][1][worst].norm().item()
         reading("event_parallel", f"seed {seed}: event parallel, 2 ranks", event,
                 dense[0][:3])
     cs.log(json.dumps({"readings": readings}))
     cs.log(json.dumps(summary(readings)))
+    if trajectories:
+        cs.log(json.dumps({"bf16_trajectory": {
+            k: [min(t[k] for t in trajectories), max(t[k] for t in trajectories)]
+            for k in ("dev", "fall", "fall_float32")}}))
     return 0
 
 
@@ -170,18 +223,20 @@ def summary(readings):
     """The largest readings of each comparison and the bounds derived from
     them; data_parallel_resync without the seeds whose one-process floor
     (dense_train_resync) breaks dense_train's bounds."""
-    dense = bounds_from_readings(readings["dense_train"])
-    ill = [f["name"] for f in readings["dense_train_resync"] if not within(f, dense)]
+    ill = []
+    if readings.get("dense_train") and readings.get("dense_train_resync"):
+        dense = bounds_from_readings(readings["dense_train"])
+        ill = [f["name"] for f in readings["dense_train_resync"] if not within(f, dense)]
     out = {}
     for kind, rs in readings.items():
         kept = rs
-        if kind == "data_parallel_resync":
+        if kind == "data_parallel_resync" and "dense_train_resync" in readings:
             kept = [r for r, f in zip(rs, readings["dense_train_resync"])
                     if f["name"] not in ill]
         out[kind] = dict(
             runs=len(kept), loss=max(r["loss"] for r in kept),
             cos=min(r["cos"] for r in kept), norm=max(r["norm"] for r in kept),
-            buf=max(r["buf"] for r in kept),
+            buf=max(r["buf"] for r in kept), cos_all=min(r["cos_all"] for r in kept),
             bounds=bounds_from_readings(kept) if kind in cs.STEP_BOUNDS else None)
     return {"largest": out, "headroom": HEADROOM, "ill_conditioned": ill}
 

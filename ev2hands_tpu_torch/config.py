@@ -104,6 +104,32 @@ class ModelConfig:
     # over the 'event' ranks of the mesh given as TEHNet(event_mesh=...)
     # (parallel/event_parallel.py).
     event_parallel: bool = False
+    # Gather route in training: apply each scale's first conv per point,
+    # gather those rows ([B, S, K, C1] instead of [points, xyz]) and rebuild
+    # the pair activation as u_n - v_s + b, with v_s the conv of [0, c_s].
+    # BatchNorm sees the same selected-neighbor multiset. Ignored where the
+    # one-hot gather kernel takes the layer (pallas_gather).
+    uv_split_gather: bool = False
+    # Mixed-precision training: the Dense/Conv chains of the set-abstraction
+    # gather route, sa3 and the regressors' global layer, feature
+    # propagation, the query heads and the classifier's first conv compute
+    # in bfloat16. Parameters, Adam state, BatchNorm statistics and
+    # normalisation, the output heads, MANO and the losses stay float32.
+    # Eval is unchanged.
+    bf16_train: bool = False
+    # Mixed-precision eval: the Dense/Conv layers and the eval BatchNorm of
+    # the dense set-abstraction scales (not the block-sparse ones), sa3 and
+    # the regressors' global layer, feature propagation, the query heads and
+    # the classifier trunk compute in bfloat16. Selection (FPS, distances,
+    # ball-query masks, 3-NN) stays float32, so every index is unchanged;
+    # the output heads, MANO and the metrics stay float32. Training is
+    # unchanged.
+    bf16_eval: bool = False
+    # Eval on the dense route without an event mesh: both regressor heads in
+    # one pass (model/fused_regressor.py): one FPS draw and one selection per
+    # radius shared, eval BatchNorm folded into the convs and the two heads'
+    # weights stacked on a leading axis.
+    fused_regressors: bool = False
     dropout_classifier: float = 0.3
     dropout_query: float = 0.1
     dropout_regressor: float = 0.3

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ev2hands_tpu_torch.config import Config
+from ev2hands_tpu_torch.evaluate import DrawsFn
 from ev2hands_tpu_torch.events.erpc import erpc_real_batch_transform
 from ev2hands_tpu_torch.events.real_streams import RealStream, sliding_window_batches
 from ev2hands_tpu_torch.events.streams import Prefetcher
@@ -45,9 +46,9 @@ from ev2hands_tpu_torch.ops.collision import collision_percentage
 
 def make_real_eval_step(net: TEHNet, hands: Dict[str, ManoParams],
                         ctx: CollisionContext, cfg: Config, device="cuda"):
-    """-> ``step(events, event_valid, generator)`` -> (pred joints [B, 2,
-    21, 3] in mm, non-collision score [B] in %), the ERPC resample draws
-    from ``generator``.
+    """-> ``step(events, event_valid, generator=None, *, draws=None)`` ->
+    (pred joints [B, 2, 21, 3] in mm, non-collision score [B] in %), the
+    ERPC resample draws from ``generator`` or given as ``draws``.
 
     ``net`` (put in eval mode), ``hands`` and ``ctx`` live on ``device``,
     which defaults to the card and raises when there is none."""
@@ -58,10 +59,11 @@ def make_real_eval_step(net: TEHNet, hands: Dict[str, ManoParams],
     net.eval()
 
     @torch.inference_mode()
-    def step(events, event_valid, generator: torch.Generator):
+    def step(events, event_valid, generator: Optional[torch.Generator] = None, *,
+             draws: Optional[torch.Tensor] = None):
         erpc = erpc_real_batch_transform(
             torch.as_tensor(events, device=device),
-            torch.as_tensor(event_valid, device=device), generator,
+            torch.as_tensor(event_valid, device=device), generator, draws=draws,
             width=sensor.width, height=sensor.height, n_out=cfg.model.n_points)
         outputs = apply_mano(hands, net(erpc.events))
         pred_j = torch.stack([outputs["left"]["j3d"], outputs["right"]["j3d"]], 1)
@@ -76,11 +78,13 @@ def make_real_eval_step(net: TEHNet, hands: Dict[str, ManoParams],
 def evaluate_recording(
     eval_step, stream: RealStream, cfg: Config, batch_size: int = 32,
     num_steps: int = 100, max_windows: Optional[int] = None, device="cuda",
+    draws: Optional[DrawsFn] = None,
 ) -> Dict:
     """Every sliding window of ``stream`` (up to ``max_windows``) through
     ``eval_step`` -> per-recording report, with the end-to-end windows/s
     (host windowing, device inference and metric accumulation). Resample
-    draws come from a generator seeded 0 on ``device``."""
+    draws come from a generator seeded 0 on ``device``, or from
+    ``draws(i, batch)`` for batch ``i`` where that is given."""
     pck = {k: np.zeros(num_steps + 1)
            for k in ("absolute", "relative", "right_root_relative")}
     curves = {"absolute": absolute_pck3d, "relative": relative_pck3d,
@@ -93,9 +97,10 @@ def evaluate_recording(
     t_start = time.perf_counter()
     batches = Prefetcher(sliding_window_batches(stream, batch_size, max_windows,
                                                 with_gt=True))
-    for b in batches:
+    for i, b in enumerate(batches):
         k = b["n_valid"]
-        pred, noncol = eval_step(b["events"], b["event_valid"], generator)
+        pred, noncol = eval_step(b["events"], b["event_valid"], generator,
+                                 draws=None if draws is None else draws(i, b))
         gt = torch.as_tensor(b["j3d"], device=pred.device) * 1000.0  # m -> mm
         pred, gt, noncol = pred[:k], gt[:k], noncol[:k]
         for name, fn in curves.items():

@@ -25,12 +25,24 @@ Data parallel: the JAX package exports one program sharded over N chips
 program, so ``export_serving(..., data_parallel=N)`` exports the one-card
 program at batch B / N, and ``load_serving(path, devices)`` loads it once
 a device and splits and joins the batch on the host: each shard is the
-one-card program's. Exporting with an event mesh (``export.py:93-95``) is
-not ported.
+one-card program's.
+
+Event mesh (``export.py:93-95`` of the JAX package): ``export_serving(net,
+..., event_mesh=mesh)`` exports the serving function of a
+``TEHNet(event_mesh=mesh)`` with ``cfg.event_parallel``, each event rank's
+part of it, at the batch of one data rank. The event route's all-gathers,
+its shard of the events, its rank and each sharded FPS draw become
+registered ops (``torch.ops.ev2hands.event_all_gather``, ``.event_shard``,
+``.event_rank``, ``parallel/mesh.py``; ``.event_fps``,
+``parallel/event_parallel.py``), so the graph holds no process group and
+no rank, and one artifact serves every rank: ``load_serving(path,
+event_mesh=mesh)``, called on every rank of the mesh, installs the mesh for
+those ops.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -40,6 +52,7 @@ from ev2hands_tpu_torch.config import Config
 from ev2hands_tpu_torch.events.erpc import erpc_real_batch_transform
 from ev2hands_tpu_torch.mano.layer import ManoParams
 from ev2hands_tpu_torch.model.tehnet import TEHNet, apply_mano
+from ev2hands_tpu_torch.parallel.mesh import Mesh, gather_rows, install_mesh, local_rows
 
 HAND_KEYS = ("global_orient", "hand_pose", "betas", "transl", "vertices", "j3d")
 
@@ -88,15 +101,24 @@ class _Serving(nn.Module):
 
 def export_serving(net: TEHNet, hands: Dict[str, ManoParams], cfg: Config,
                    batch_size: int, max_events: int = 8192,
-                   path: Optional[str] = None,
-                   data_parallel: int = 0) -> torch.export.ExportedProgram:
+                   path: Optional[str] = None, data_parallel: int = 0,
+                   event_mesh: Optional[Mesh] = None) -> torch.export.ExportedProgram:
     """Export the serving function for ``batch_size`` windows of up to
     ``max_events`` events on the device of ``net``'s weights (and of
     ``hands``), optionally saved to ``path`` (``.pt2``). The net is put in
     eval mode. The export runs outside ``torch.inference_mode``, under
     ``no_grad``. ``data_parallel=N`` exports the program of one of N
     devices, batch ``batch_size / N`` (which must divide), for
-    ``load_serving(path, devices)``."""
+    ``load_serving(path, devices)``. ``event_mesh``: the program of one rank
+    of that (data, event) mesh, batch ``batch_size`` / its data ranks, for
+    ``load_serving(path, event_mesh=...)``; ``net`` must be under that mesh
+    with ``cfg.event_parallel``. Tracing runs no collective, so one process
+    exports it."""
+    if event_mesh is not None:
+        if net.event_mesh is None:
+            raise ValueError("export_serving: an event mesh needs TEHNet(event_mesh=...) "
+                             "with cfg.event_parallel")
+        data_parallel = event_mesh.data_size
     if data_parallel:
         if batch_size % data_parallel:
             raise ValueError(f"export_serving: a batch of {batch_size} does not "
@@ -108,19 +130,33 @@ def export_serving(net: TEHNet, hands: Dict[str, ManoParams], cfg: Config,
     args = (torch.zeros((batch_size, max_events, 4), device=device),
             torch.ones((batch_size, max_events), dtype=torch.bool, device=device),
             torch.zeros((batch_size, n), dtype=torch.float64, device=device))
-    with torch.no_grad():
-        program = torch.export.export(_Serving(net, make_serving_fn(net, hands, cfg)),
-                                      args, strict=False)
+    live = net.event_mesh
+    if event_mesh is not None:
+        net.set_mesh(event_mesh=dataclasses.replace(event_mesh, program=True))
+    try:
+        with torch.no_grad():
+            program = torch.export.export(
+                _Serving(net, make_serving_fn(net, hands, cfg)), args, strict=False)
+    finally:
+        if event_mesh is not None:
+            net.set_mesh(event_mesh=live)
     if path:
         torch.export.save(program, path)
     return program
 
 
-def load_serving(path: str, devices: Optional[Sequence] = None):
+def load_serving(path: str, devices: Optional[Sequence] = None,
+                 event_mesh: Optional[Mesh] = None):
     """A saved artifact -> callable ``(events, valid, uniforms) -> outputs``,
     run under ``torch.inference_mode`` (the program's weights are
     parameters, so autograd would otherwise keep every activation).
     Imports the port's kernel modules first, which registers the ops.
+
+    ``event_mesh`` (an ``event_mesh`` export), on every rank of the mesh:
+    the program loads on the mesh's device, which installs the mesh for its
+    event ops; the callable takes the global batch, runs this data rank's
+    rows and returns the global batch's outputs, all-gathered over the data
+    ranks (every event rank returns them).
 
     ``devices`` (a ``data_parallel`` export): the program loads once a
     device, and the callable splits the batch into ``len(devices)`` equal
@@ -129,6 +165,18 @@ def load_serving(path: str, devices: Optional[Sequence] = None):
     weights, constants and device arguments moved to it."""
     import ev2hands_tpu_torch.ops.fps  # noqa: F401
     import ev2hands_tpu_torch.ops.grouping  # noqa: F401
+
+    if event_mesh is not None:
+        install_mesh(event_mesh)
+        module = _on_device(torch.export.load(path).module(), event_mesh.device)
+
+        @torch.inference_mode()
+        def serve_ranks(events, valid, uniforms):
+            out = module(*(local_rows(t, event_mesh).to(event_mesh.device)
+                           for t in (events, valid, uniforms)))
+            return {k: gather_rows(v, event_mesh) for k, v in out.items()}
+
+        return serve_ranks
 
     if devices is None:
         module = torch.export.load(path).module()
@@ -184,7 +232,8 @@ def _on_device(module: nn.Module, device: torch.device) -> nn.Module:
 
 
 def op_counts(program: torch.export.ExportedProgram) -> Dict[str, int]:
-    """Nodes of each ``ev2hands::`` op in an exported program's graph."""
+    """Nodes of each ``ev2hands::`` op in an exported program's graph: the
+    kernels' and, in an event-mesh program, the event ops'."""
     counts: Dict[str, int] = {}
     for node in program.graph.nodes:
         name = str(node.target) if node.op == "call_function" else ""

@@ -205,12 +205,17 @@ def main(argv=None) -> TrainRun:
     add_mano_args(ap)
     ap.add_argument("--tensorboard", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--bf16", action="store_true",
+                    help="mixed-precision training: the conv chains in bfloat16, "
+                         "parameters, BatchNorm statistics and losses float32 "
+                         "(ModelConfig.bf16_train)")
     add_parallel_args(ap)
     args = ap.parse_args(argv)
     join_ranks(args)
     cfg = DEFAULT_CONFIG.replace(
         mano=dataclasses.replace(DEFAULT_CONFIG.mano, model_path=args.mano_dir),
-        model=dataclasses.replace(DEFAULT_CONFIG.model, n_points=args.n_points),
+        model=dataclasses.replace(DEFAULT_CONFIG.model, n_points=args.n_points,
+                                  bf16_train=args.bf16),
         train=dataclasses.replace(
             DEFAULT_CONFIG.train, batch_size=args.batch_size,
             eval_batch_size=args.eval_batch_size, msg_iter=args.msg_iter,

@@ -64,6 +64,10 @@ class Pointwise(nn.Module):
     layer (``dims`` = 0) applied over the last axis of a channels-last
     tensor. ``weight`` has the torch layout [out, in, 1, ...]."""
 
+    # compute in bfloat16 in training / in eval (``set_precision``)
+    bf16_train = False
+    bf16_eval = False
+
     def __init__(self, in_ch: int, out_ch: int, dims: int, device="cuda"):
         super().__init__()
         self.weight = nn.Parameter(
@@ -75,8 +79,31 @@ class Pointwise(nn.Module):
         """The weight as an [in, out] matrix."""
         return self.weight.reshape(self.weight.shape[0], -1).t()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        """``x @ kernel + bias`` in ``dtype``: by default bfloat16 where this
+        mode's switch is on, else the promotion of x's and the weight's
+        dtypes (flax's ``Dense(dtype=...)``: input, weight and bias cast,
+        the product and the bias add in that dtype)."""
+        x, w, b = _cast(dtype or _compute_dtype(self, x), x, self.kernel, self.bias)
+        return x @ w + b
+
+
+def _promote(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    return a if a == b else torch.promote_types(a, b)
+
+
+def _compute_dtype(layer: nn.Module, x: torch.Tensor) -> torch.dtype:
+    """bfloat16 where ``layer``'s switch for its mode is on, else the
+    promotion of x's and its weight's dtypes."""
+    if layer.bf16_train if layer.training else layer.bf16_eval:
+        return torch.bfloat16
+    return _promote(x.dtype, layer.weight.dtype)
+
+
+def _cast(dtype: torch.dtype, *tensors: torch.Tensor):
+    """``tensors`` in ``dtype``; the ones already there as they are (no
+    node in an exported graph)."""
+    return [t if t.dtype == dtype else t.to(dtype) for t in tensors]
 
 
 class BatchNorm(nn.Module):
@@ -94,6 +121,8 @@ class BatchNorm(nn.Module):
     no mesh."""
 
     momentum = 0.9
+    # eval output in bfloat16 (``set_precision``)
+    bf16_eval = False
 
     def __init__(self, features: int, device="cuda", eps: float = 1e-5):
         super().__init__()
@@ -105,6 +134,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a bfloat16 input is promoted to the parameters' dtype, as flax
+        # does: the statistics and the normalisation run in float32
+        (x,) = _cast(_promote(x.dtype, self.weight.dtype), x)
         if self.training:
             dims = tuple(range(x.dim() - 1))
             mean, var = self.finalize_sums(x.sum(dim=dims), (x * x).sum(dim=dims),
@@ -112,7 +144,10 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        y = (x - mean) * mul + self.bias
+        if self.bf16_eval and not self.training:
+            y = y.to(torch.bfloat16)
+        return y
 
     def finalize_sums(self, total, total_sq, count: int):
         """Batch (mean, var) from the per-channel sum, sum of squares and
@@ -192,7 +227,11 @@ class Chain(nn.Sequential):
 
 class Conv1dK3(nn.Module):
     """k=3 SAME convolution along the point axis of [B, N, C]; ``weight`` is
-    the torch Conv1d layout [out, in, 3]."""
+    the torch Conv1d layout [out, in, 3]. Computes in ``Pointwise``'s
+    dtype."""
+
+    bf16_train = False
+    bf16_eval = False
 
     def __init__(self, in_ch: int, out_ch: int, device="cuda"):
         super().__init__()
@@ -200,7 +239,7 @@ class Conv1dK3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _ConvK3.apply(x, self.weight, self.bias)
+        return _ConvK3.apply(*_cast(_compute_dtype(self, x), x, self.weight, self.bias))
 
 
 class _ConvK3(torch.autograd.Function):
@@ -263,7 +302,13 @@ class SetAbstractionMsg(nn.Module):
       backfill duplicates included. Behind ``use_pallas_gather`` the rows
       are gathered in Morton order by the one-hot gather kernel
       (``_pallas_gathered``), else by ``index_points`` (``_gathered``):
-      the same rows either way.
+      the same rows either way. With ``uv_split_gather`` (and no one-hot
+      gather) each scale's first conv runs per point before the gather
+      (``_uv_scales``).
+
+    The layers' dtypes follow ``set_precision``; the dense-train, event
+    and block-sparse routes take the weights directly and stay in the
+    parameters' dtype.
     """
 
     def __init__(
@@ -274,7 +319,8 @@ class SetAbstractionMsg(nn.Module):
         pallas_nb: int = 256, pallas_gather: bool = False,
         pallas_gather_nb: int = 128, pallas_gather_bwd: bool = False,
         pallas_gather_wide: bool = True, rank_ball_query: bool = True,
-        pallas_fused: bool = False, dense_train: bool = False, device="cuda",
+        pallas_fused: bool = False, dense_train: bool = False,
+        uv_split_gather: bool = False, device="cuda",
     ):
         super().__init__()
         if grouping not in ("dense", "gather"):
@@ -294,6 +340,7 @@ class SetAbstractionMsg(nn.Module):
         self.rank_ball_query = rank_ball_query
         self.pallas_fused = pallas_fused
         self.dense_train = dense_train
+        self.uv_split_gather = uv_split_gather
         # the data mesh (dense_train's sums) and the event mesh (FPS and the
         # dense scales sharded over the event axis); set by TEHNet.set_mesh
         self.mesh = None
@@ -371,6 +418,8 @@ class SetAbstractionMsg(nn.Module):
         if self.training or self.grouping == "gather":
             if self.use_pallas_gather(N, points.shape[-1]):
                 gathered = self._pallas_gathered(xyz, points, new_xyz)
+            elif self.uv_split_gather:
+                return new_xyz, self._uv_scales(xyz, points, new_xyz)
             else:
                 gathered = self._gathered(xyz, points, new_xyz)
             return new_xyz, self._gather_scales(gathered, new_xyz,
@@ -398,14 +447,46 @@ class SetAbstractionMsg(nn.Module):
                     i, xyz, points, new_xyz, sqrdists, radius, k))
         return new_xyz, torch.cat(outs, dim=-1)
 
+    def _ball_query(self, xyz, new_xyz):
+        """[B, S, sum(K)] indices of every scale's ball query."""
+        sqrdists = square_distance(new_xyz, xyz)
+        return torch.cat([
+            query_ball_point(r, k, sqrdists, rank=self.rank_ball_query)
+            for r, k in zip(self.radius_list, self.nsample_list)], dim=-1)
+
     def _gathered(self, xyz, points, new_xyz):
         """[B, S, sum(K), D + 3] rows of ``[points, xyz]`` at every scale's
         ball query, one ``index_points`` for all scales."""
-        sqrdists = square_distance(new_xyz, xyz)
-        idx = torch.cat([
-            query_ball_point(r, k, sqrdists, rank=self.rank_ball_query)
-            for r, k in zip(self.radius_list, self.nsample_list)], dim=-1)
-        return index_points(torch.cat([points, xyz], dim=-1), idx)
+        return index_points(torch.cat([points, xyz], dim=-1),
+                            self._ball_query(xyz, new_xyz))
+
+    def _uv_scales(self, xyz, points, new_xyz):
+        """The gather route with each scale's first conv split
+        (``uv_split_gather``; ``model/layers.py:261-298, 415-430`` of the JAX
+        package): u_n = conv0([f_n, x_n]) of every scale per point, one
+        gather of the concatenated u at every scale's ball query, and
+        z = u_g - v_s + zb, with v_s = conv0([0, c_s]) and zb = conv0(0)
+        the bias that u - v cancels. BatchNorm sees the gather route's
+        neighbor multiset."""
+        B, S, D = new_xyz.shape[0], new_xyz.shape[1], points.shape[-1]
+        src = torch.cat([points, xyz], dim=-1)
+        u = index_points(torch.cat([convs[0](src) for convs in self.conv_blocks], dim=-1),
+                         self._ball_query(xyz, new_xyz))
+        cent = torch.cat([xyz.new_zeros(B, S, D), new_xyz], dim=-1)
+        zero = xyz.new_zeros(1, 1, D + 3)
+        outs = []
+        k_off = c_off = 0
+        for convs, bns, k in zip(self.conv_blocks, self.bn_blocks, self.nsample_list):
+            c1 = convs[0].weight.shape[0]
+            z = (u[:, :, k_off:k_off + k, c_off:c_off + c1]
+                 - convs[0](cent)[:, :, None] + convs[0](zero))
+            k_off += k
+            c_off += c1
+            x = torch.relu(bns[0](z))
+            for conv, bn in zip(convs[1:], bns[1:]):
+                x = torch.relu(bn(conv(x)))
+            outs.append(torch.amax(x, dim=2))
+        return torch.cat(outs, dim=-1)
 
     def _pallas_gathered(self, xyz, points, new_xyz):
         """The same rows as ``_gathered``, gathered by the one-hot gather
@@ -543,8 +624,9 @@ class SetAbstractionMsg(nn.Module):
         rank = torch.cumsum(mask, dim=-1) - mask.long()
         at0 = torch.arange(N, device=xyz.device) == 0
         sel, w = selection_weights(mask, rank, mask.sum(-1), k, at0, xyz.dtype)
-        u = convs[0](torch.cat([points, xyz], dim=-1))
-        v = convs[0](torch.cat([xyz.new_zeros(B, S, D), new_xyz], dim=-1))
+        dt = convs[0].weight.dtype   # this route stays in the parameters' dtype
+        u = convs[0](torch.cat([points, xyz], dim=-1), dt)
+        v = convs[0](torch.cat([xyz.new_zeros(B, S, D), new_xyz], dim=-1), dt)
         mx, mn, affines = weighted_msg_sweeps(
             u, v, convs[0].bias, sel, w, [(c.kernel, c.bias) for c in convs[1:]],
             lambda l, wsum, wsqsum: bns[l].finalize(wsum, wsqsum, B * S * k),
@@ -563,8 +645,9 @@ class SetAbstractionMsg(nn.Module):
         v = convs[0](torch.cat([xyz.new_zeros(B, S, D), new_xyz], dim=-1))
         chunk = max(1, min(self.dense_chunk, S))
         outs = []
+        (bias,) = _cast(u.dtype, convs[0].bias)
         for s0 in range(0, S, chunk):
-            z = u[:, None] - v[:, s0:s0 + chunk, None] + convs[0].bias
+            z = u[:, None] - v[:, s0:s0 + chunk, None] + bias
             h = torch.relu(bns[0](z))
             for conv, bn in zip(convs[1:], bns[1:]):
                 h = torch.relu(bn(conv(h)))
@@ -635,7 +718,10 @@ def attention_block(key: torch.Tensor, value: torch.Tensor,
                     query: torch.Tensor) -> torch.Tensor:
     """Class-space attention: key [B, N, KC], value and query [B, N, C] ->
     [B, N, KC]. The scale is C**-0.5 (the value width, the reference's
-    quirk) and the softmax runs over the class axis."""
+    quirk) and the softmax runs over the class axis. Computes in the
+    promotion of the three dtypes."""
+    key, value, query = _cast(_promote(_promote(key.dtype, value.dtype), query.dtype),
+                              key, value, query)
     c = value.shape[-1]
     sim = torch.einsum("bnk,bnc->bkc", key, query) * (c ** -0.5)
     sim = torch.softmax(sim, dim=1)

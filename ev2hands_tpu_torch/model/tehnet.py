@@ -20,6 +20,12 @@ event mesh (``TEHNet(event_mesh=...)``), FPS and the dense set-abstraction
 scales of sa1, sa2 and the heads' sa1 shard the event axis over the event
 ranks (eval, and training with ``dense_train``); the event mesh's data ranks
 are the data mesh.
+
+The default-off switches of ``ModelConfig``: ``bf16_train`` and
+``bf16_eval`` (``set_precision``), ``uv_split_gather`` (the set-abstraction
+layers' gather route) and ``fused_regressors`` (eval on the dense route
+without an event mesh runs both heads in one pass,
+``model/fused_regressor.py``).
 """
 
 from __future__ import annotations
@@ -31,9 +37,11 @@ from torch import nn
 
 from ev2hands_tpu_torch.config import ModelConfig
 from ev2hands_tpu_torch.mano.layer import ManoParams, mano_forward
+from ev2hands_tpu_torch.model.fused_regressor import fused_two_hand_regressor
 from ev2hands_tpu_torch.model.layers import (
     BatchNorm,
     Chain,
+    Conv1dK3,
     Dropout,
     FeaturePropagation,
     Pointwise,
@@ -106,6 +114,7 @@ class TEHNet(nn.Module):
                 pallas_gather_wide=cfg.pallas_gather_wide,
                 rank_ball_query=cfg.rank_ball_query,
                 pallas_fused=cfg.pallas_fused_msg, dense_train=cfg.dense_train,
+                uv_split_gather=cfg.uv_split_gather,
             )
 
         self.sa1 = SetAbstractionMsg(
@@ -134,6 +143,8 @@ class TEHNet(nn.Module):
                    **sa_options(cfg.grouping_regressor, cfg.regressor_dense_chunk))
         self.left_mano_regressor = ManoRegressor(**reg)
         self.right_mano_regressor = ManoRegressor(**reg)
+        self.regressor_grouping = cfg.grouping_regressor or cfg.grouping
+        set_precision(self, cfg.bf16_train, cfg.bf16_eval)
         self.set_mesh(mesh, event_mesh)
 
     def set_mesh(self, mesh: Optional[Mesh] = None,
@@ -192,6 +203,13 @@ class TEHNet(nn.Module):
         left_features = attention_block(seg_logits, l0_feats, left_query)
         right_features = attention_block(seg_logits, l0_feats, right_query)
 
+        if (cfg.fused_regressors and not self.training and self.event_mesh is None
+                and self.regressor_grouping == "dense"):
+            left, right = fused_two_hand_regressor(
+                (self.left_mano_regressor, self.right_mano_regressor), l0_xyz,
+                left_features, right_features)
+            return {"class_logits": seg_logits, "left": left, "right": right}
+
         # one FPS for both heads when they start alike (eval, deterministic
         # training) or share a draw; independent draws otherwise
         reg_fps_idx = None
@@ -205,6 +223,35 @@ class TEHNet(nn.Module):
         right = self.right_mano_regressor(l0_xyz, right_features, reg_fps_idx,
                                           starts[3], generator)
         return {"class_logits": seg_logits, "left": left, "right": right}
+
+
+def set_precision(net: "TEHNet", bf16_train: bool, bf16_eval: bool) -> None:
+    """The layers that compute in bfloat16 under ``bf16_train`` (in
+    training) and ``bf16_eval`` (in eval), as the JAX package routes its
+    ``dtype``: the convs of the set-abstraction layers (their gather and
+    dense routes), sa3 and the heads' global layer, feature propagation,
+    the query heads and the classifier's first conv; under ``bf16_eval``
+    also those layers' eval BatchNorm output. The classifier's last conv and
+    the heads' fc stack stay in the parameters' dtype, and every BatchNorm
+    normalises in it."""
+    layers = [net.sa1, net.sa2, net.sa3, net.fp3, net.fp2, net.fp1,
+              net.left_query_conv, net.right_query_conv, net.classifier[0],
+              net.classifier[2]]
+    for head in (net.left_mano_regressor, net.right_mano_regressor):
+        layers += [head.sa1, head.sa2]
+    for layer in layers:
+        set_layer_precision(layer, bf16_train, bf16_eval)
+
+
+def set_layer_precision(layer: nn.Module, bf16_train: bool, bf16_eval: bool) -> None:
+    """Every conv of ``layer`` computes in bfloat16 under ``bf16_train`` (in
+    training) and ``bf16_eval`` (in eval), and under ``bf16_eval`` every eval
+    BatchNorm of it outputs bfloat16."""
+    for m in layer.modules():
+        if isinstance(m, (Pointwise, Conv1dK3)):
+            m.bf16_train, m.bf16_eval = bf16_train, bf16_eval
+        elif isinstance(m, BatchNorm):
+            m.bf16_eval = bf16_eval
 
 
 def apply_mano(hands: Dict[str, ManoParams], outputs: Dict) -> Dict:

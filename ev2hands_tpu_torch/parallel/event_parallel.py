@@ -49,6 +49,7 @@ from ev2hands_tpu_torch.parallel.mesh import (
     all_max,
     all_sum_grad,
     create_event_mesh,
+    installed_mesh,
 )
 
 __all__ = ["create_event_mesh", "fold_bn_dense", "event_sharded_dense_scale",
@@ -71,8 +72,18 @@ def _shard(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     E, N = mesh.event_size, x.shape[1]
     if N % E:
         raise ValueError(f"{N} events do not split over {E} event ranks")
+    if mesh.program:
+        return torch.ops.ev2hands.event_shard(x, E)
     n = N // E
     return x[:, mesh.event_rank * n:(mesh.event_rank + 1) * n]
+
+
+def _event_rank(mesh: Mesh, like: torch.Tensor):
+    """This event rank: an int, or in an exported program (``mesh.program``)
+    the registered op's int64 scalar on ``like``'s device."""
+    if mesh.program:
+        return torch.ops.ev2hands.event_rank(like, mesh.event_size)
+    return mesh.event_rank
 
 
 def _global_rank(mask: torch.Tensor, mesh: Mesh, dtype) -> Tuple[torch.Tensor,
@@ -81,7 +92,7 @@ def _global_rank(mask: torch.Tensor, mesh: Mesh, dtype) -> Tuple[torch.Tensor,
     of each in-radius point [b, S, n], the global in-radius count [b, S])."""
     local_rank = torch.cumsum(mask, dim=-1) - mask.long()
     counts = all_gather(mask.sum(dim=-1).to(dtype), mesh, EVENT_AXIS).long()
-    lower = torch.arange(counts.shape[0], device=mask.device) < mesh.event_rank
+    lower = torch.arange(counts.shape[0], device=mask.device) < _event_rank(mesh, mask)
     offset = (counts * lower[:, None, None]).sum(dim=0)
     return local_rank + offset[..., None], counts.sum(dim=0)
 
@@ -113,7 +124,7 @@ def event_sharded_dense_scale(mesh: Mesh, xyz: torch.Tensor, u: torch.Tensor,
     h = torch.relu(z @ W2 + b2)
     h = torch.relu(h @ W3 + b3)
     pooled = torch.where(sel[..., None], h, -torch.inf).amax(dim=2)
-    fallback = torch.where(((total == 0) & (mesh.event_rank == 0))[..., None],
+    fallback = torch.where(((total == 0) & (_event_rank(mesh, total) == 0))[..., None],
                            h[:, :, 0], -torch.inf)
     return all_max(torch.maximum(pooled, fallback), mesh, EVENT_AXIS)
 
@@ -132,7 +143,7 @@ def event_sharded_msg_scale(mesh: Mesh, xyz: torch.Tensor, points: torch.Tensor,
     xyz_s, pts_s = _shard(xyz, mesh), _shard(points, mesh)
     b, S, D = new_xyz.shape[0], new_xyz.shape[1], points.shape[-1]
     _, sel, _, total = _selection(xyz_s, new_xyz, radius, nsample, mesh)
-    fb_rows = ((total == 0) & (mesh.event_rank == 0))[..., None]
+    fb_rows = ((total == 0) & (_event_rank(mesh, total) == 0))[..., None]
     W0, b0 = layers[0]
     u = torch.cat([pts_s, xyz_s], dim=-1) @ W0
     v = torch.cat([xyz.new_zeros(b, S, D), new_xyz], dim=-1) @ W0
@@ -156,11 +167,14 @@ def event_sharded_fps(mesh: Mesh, xyz: torch.Tensor, npoint: int,
     N / E block, in the plain version's formula; a step's next point is the
     largest of the shards' first maxima, the lowest shard on ties, from one
     all-gather of (distance, index) [E, b, 2]. ``start`` [b] is each row's
-    first index (default 0)."""
+    first index (default 0). In an exported program the whole loop is one
+    registered op, ``torch.ops.ev2hands.event_fps``."""
+    if mesh.program:
+        return torch.ops.ev2hands.event_fps(xyz, npoint, start, mesh.event_size)
     B, N, _ = xyz.shape
     xyz_s = _shard(xyz, mesh)
     n = xyz_s.shape[1]
-    base = mesh.event_rank * n
+    base = _event_rank(mesh, xyz) * n
     if start is None:
         start = torch.zeros(B, dtype=torch.int32, device=xyz.device)
     far = start.to(device=xyz.device, dtype=torch.long)
@@ -182,6 +196,19 @@ def event_sharded_fps(mesh: Mesh, xyz: torch.Tensor, npoint: int,
         win = torch.argmax(every[..., 0], dim=0)
         far = every[win, rows, 1].long()
     return out
+
+
+@torch.library.custom_op("ev2hands::event_fps", mutates_args=())
+def event_fps_op(xyz: torch.Tensor, npoint: int, start: Optional[torch.Tensor],
+                 size: int) -> torch.Tensor:
+    """``event_sharded_fps`` over the installed mesh (``parallel/mesh.py``),
+    as one node of an exported program."""
+    return event_sharded_fps(installed_mesh(size), xyz, npoint, start)
+
+
+@event_fps_op.register_fake
+def _event_fps_fake(xyz, npoint, start, size):
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
 
 
 def weighted_msg_sweeps(

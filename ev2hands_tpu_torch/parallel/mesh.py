@@ -23,6 +23,14 @@ differentiable forms: the backward of a SUM is the SUM of the cotangents,
 and the all-gather's backward gives each rank the sum over ranks of its
 slot's cotangent (the transpose JAX gives ``all_gather``).
 
+An exported serving program (``export.export_serving(event_mesh=...)``)
+cannot hold a process group or a rank: its mesh is marked ``program``, and
+the event route then reaches its all-gather, its shard of the events, its
+event rank and its FPS through registered ops (``torch.ops.ev2hands.event_*``),
+which the exported graph keeps as nodes. They run over the mesh that
+``install_mesh`` gives when the program is loaded, so every rank loads the
+same artifact.
+
 ``start_ranks`` / ``run_ranks`` start one process per rank on this host and
 collect what each returns; the tests and ``chip_smoke.py`` use them.
 """
@@ -101,6 +109,9 @@ class Mesh:
     event_rank: int
     event_size: int
     device: torch.device
+    # traced into an exported program: the event collectives and the event
+    # rank are the registered ops, run over the installed mesh
+    program: bool = False
 
     @property
     def rank(self) -> int:
@@ -263,7 +274,7 @@ def all_max(x: torch.Tensor, mesh: Optional[Mesh], axis: str = EVENT_AXIS) -> to
     """The MAX of ``x`` over the ranks of ``axis`` (no gradient): the max
     over the slot-sum all-gather, exact, and a SUM whatever ReduceOps the
     backend carries for the device."""
-    if _group(mesh, axis) is None:
+    if _group(mesh, axis) is None and not (mesh is not None and mesh.program):
         return x
     return all_gather(x, mesh, axis).amax(dim=0)
 
@@ -272,6 +283,10 @@ def all_gather(x: torch.Tensor, mesh: Optional[Mesh], axis: str = EVENT_AXIS) ->
     """[size, *x.shape]: every rank's ``x`` of ``axis`` in rank order, the
     SUM of a zero buffer in which each rank fills its own slot (no
     gradient)."""
+    if mesh is not None and mesh.program:
+        if axis != EVENT_AXIS:
+            raise ValueError(f"an exported program gathers over {EVENT_AXIS!r} only")
+        return torch.ops.ev2hands.event_all_gather(x, mesh.event_size)
     size = _axis_size(mesh, axis)
     if _group(mesh, axis) is None:
         return x.detach()[None]
@@ -350,6 +365,69 @@ def all_sum_grads(params: Sequence[torch.nn.Parameter], mesh: Optional[Mesh],
         n = p.numel()
         p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
         offset += n
+
+
+# --- an exported program's collectives ------------------------------------------
+
+_installed: Optional[Mesh] = None
+
+
+def install_mesh(mesh: Optional[Mesh]) -> None:
+    """The mesh over which this process's exported programs run their event
+    ops (None: none)."""
+    global _installed
+    _installed = mesh
+
+
+def installed_mesh(size: int) -> Mesh:
+    """The installed mesh, which must have ``size`` event ranks."""
+    if _installed is None:
+        raise RuntimeError("an event-mesh program runs under the mesh that "
+                           "export.load_serving(event_mesh=...) installs")
+    if _installed.event_size != size:
+        raise RuntimeError(f"the program was exported for {size} event ranks, the "
+                           f"installed mesh has {_installed.event_size}")
+    return _installed
+
+
+@torch.library.custom_op("ev2hands::event_all_gather", mutates_args=())
+def event_all_gather_op(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``all_gather`` over the event ranks of the installed mesh ->
+    [size, *x.shape]."""
+    mesh = installed_mesh(size)
+    if mesh.event_group is None:
+        return x[None].clone()
+    return all_gather(x, mesh, EVENT_AXIS)
+
+
+@event_all_gather_op.register_fake
+def _event_all_gather_fake(x, size):
+    return x.new_empty((size,) + tuple(x.shape))
+
+
+@torch.library.custom_op("ev2hands::event_shard", mutates_args=())
+def event_shard_op(x: torch.Tensor, size: int) -> torch.Tensor:
+    """This event rank's block of axis 1 of x, of the installed mesh's
+    ``size`` blocks."""
+    rank, n = installed_mesh(size).event_rank, x.shape[1] // size
+    return x[:, rank * n:(rank + 1) * n].clone()
+
+
+@event_shard_op.register_fake
+def _event_shard_fake(x, size):
+    return x.new_empty((x.shape[0], x.shape[1] // size) + tuple(x.shape[2:]))
+
+
+@torch.library.custom_op("ev2hands::event_rank", mutates_args=())
+def event_rank_op(like: torch.Tensor, size: int) -> torch.Tensor:
+    """The installed mesh's event rank, an int64 scalar on ``like``'s
+    device."""
+    return torch.tensor(installed_mesh(size).event_rank, device=like.device)
+
+
+@event_rank_op.register_fake
+def _event_rank_fake(like, size):
+    return like.new_empty((), dtype=torch.int64)
 
 
 # --- processes ----------------------------------------------------------------

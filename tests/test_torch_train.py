@@ -1,12 +1,23 @@
 """The port's training step against the JAX package on the CPU: the whole
 slice (TEHNet in training mode -> MANO -> losses with collision ->
-gradients) in float64 on both grouping routes, and its parts: ERPC with
-augmentation, the collision loss, Adam, and the step itself.
+gradients) in float64 on the three gather routes (index, one-hot and
+``uv_split_gather``), the finetuning step on Ev2Hands-R
+(``finetune.make_finetune_step``, the same net with ``real_losses``) in
+float64, and the slice's parts: ERPC with augmentation, the collision loss,
+Adam, and the step itself.
 
 Float64 for the slice: in float32 the gradient cosines of a 20-layer chain
 drift to about 0.99 from rounding alone, so tolerances loose enough for
-float32 would hide a semantic difference.
+float32 would hide a semantic difference. JAX's side runs in a process of
+its own while this one runs the port's: one compile of TEHNet's forward
+and its vector-Jacobian product serves both steps, each loss's gradient
+with respect to the net's outputs is compiled apart, and the chain rule
+joins them.
 """
+
+import concurrent.futures
+import functools
+import multiprocessing
 
 import jax
 import jax.numpy as jnp
@@ -16,19 +27,24 @@ import pytest
 import torch
 
 from ev2hands_tpu import checkpoint as jckpt
+from ev2hands_tpu.config import DEFAULT_CONFIG as JCFG
 from ev2hands_tpu.config import ModelConfig as JModelConfig
 from ev2hands_tpu.events import erpc as je
+from ev2hands_tpu.events import real_streams as jrs
 from ev2hands_tpu.losses import CollisionContext as JCollisionContext
 from ev2hands_tpu.losses import mano_losses as j_mano_losses
+from ev2hands_tpu.losses import real_losses as j_real_losses
 from ev2hands_tpu.losses import total_loss as j_total_loss
 from ev2hands_tpu.mano import create_mano_hands, synthetic_mano_models
 from ev2hands_tpu.model import tehnet as jt
 from ev2hands_tpu.ops import collision as jc
 from ev2hands_tpu.ops import pointnet as jp
+from ev2hands_tpu_torch import finetune as tft
 from ev2hands_tpu_torch import train as ttr
 from ev2hands_tpu_torch import weights as tw
 from ev2hands_tpu_torch.config import DEFAULT_CONFIG, ModelConfig, TrainConfig
 from ev2hands_tpu_torch.events import erpc as te
+from ev2hands_tpu_torch.events import real_streams as trs
 from ev2hands_tpu_torch.mano.layer import ManoParams
 from ev2hands_tpu_torch.model import layers as tl
 from ev2hands_tpu_torch.model import tehnet as tt
@@ -38,6 +54,7 @@ from ev2hands_tpu_torch.ops import pointnet as tp
 from test_torch_erpc_mano import assert_erpc_equal, raw_windows
 
 B, N = 2, 256
+W, H = 346, 260
 NO_DROPOUT = dict(dropout_classifier=0.0, dropout_query=0.0, dropout_regressor=0.0)
 
 
@@ -86,24 +103,99 @@ FAST_COMPILE = {"xla_llvm_disable_expensive_passes": True}
 
 # --- the whole slice, float64 ---------------------------------------------
 
+# the port's routes of the slice: index_points, the one-hot gather (K8/K9's
+# plain versions), the u/v-split gather
+ROUTES = {"index": {}, "onehot": dict(pallas_gather=True, pallas_gather_bwd=True),
+          "uv": dict(uv_split_gather=True)}
+
+
 @pytest.fixture(scope="module")
-def slice_case():
-    """One JAX run of the slice in float64 (value_and_grad compiled once),
-    shared by both port runs: the same weights, synthetic MANO, batch and
-    ERPC cloud, deterministic FPS and no dropout."""
+def slice_case(tmp_path_factory):
+    """JAX's float64 slice and finetuning step, in another process, and the
+    port's meanwhile: the slice on each route (the same weights, synthetic
+    MANO, batch and ERPC cloud), then the finetuning step on a synthetic
+    Ev2Hands-R batch; deterministic FPS and no dropout."""
     rng = np.random.RandomState(0)
     batch = fake_batch(rng, B, N)
     erpc = te.erpc_batch_transform(
         _t(batch["events"]), _t(batch["labels"]),
         generator=torch.Generator().manual_seed(0), n_out=N)
-    events = erpc.events.double().numpy()
-    labels = erpc.labels.numpy()
-    net = jt.TEHNet(cfg=JModelConfig(n_points=N, fps_deterministic=True,
-                                     **NO_DROPOUT))
     # seeded numpy weights with BatchNorm variances in [0.5, 1.5], in the
     # JAX package's layout
     variables = jckpt.torch_to_flax({k: v.numpy() for k, v in tw.init_weights(
         torch.Generator().manual_seed(2), ModelConfig(n_points=N)).items()})
+    case = dict(batch=batch, events=erpc.events.double().numpy(),
+                labels=erpc.labels.numpy(), variables=variables)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        ref = pool.submit(jax_slice, case)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads // 2))   # the other half is JAX's
+        try:
+            case["finetune"] = run_port_finetune(tmp_path_factory.mktemp("finetune"))
+            ft_ref = pool.submit(jax_finetune, case["finetune"]["jax_case"])
+            case["port"] = {route: run_port_slice(case, **model)
+                            for route, model in ROUTES.items()}
+        finally:
+            torch.set_num_threads(threads)
+        case["masks"], case["ref"] = ref.result()
+        case["finetune"]["ref"] = ft_ref.result()
+    return case
+
+
+@functools.lru_cache(maxsize=None)
+def jax_net_vjp():
+    """TEHNet in training, float64, deterministic FPS, no dropout: one
+    compiled function (params, batch_stats, events, cotangent of the
+    outputs) -> (outputs, new batch statistics, the parameters'
+    gradient). Both steps call it: once with a zero cotangent for the
+    outputs, once with the loss's gradient with respect to them."""
+    net = jt.TEHNet(cfg=JModelConfig(n_points=N, fps_deterministic=True, **NO_DROPOUT))
+
+    def fwd_vjp(params, batch_stats, events, ct):
+        def forward(p):
+            outputs, upd = net.apply({"params": p, "batch_stats": batch_stats}, events,
+                                     train=True, mutable=["batch_stats"])
+            return outputs, upd["batch_stats"]
+
+        outputs, vjp, stats = jax.vjp(forward, params, has_aux=True)
+        return outputs, stats, vjp(ct)[0]
+
+    compiled = {}
+
+    def run(variables, events):
+        """-> (outputs, stats, a function of the outputs' cotangent that
+        gives the parameters' gradient)."""
+        args = (variables["params"], variables["batch_stats"], events)
+        shapes = jax.eval_shape(lambda p, bs, ev: net.apply(
+            {"params": p, "batch_stats": bs}, ev, train=True, mutable=["batch_stats"])[0],
+            *args)
+        zeros = jax.tree.map(lambda t: jnp.zeros(t.shape, t.dtype), shapes)
+        if "fn" not in compiled:
+            compiled["fn"] = jax.jit(fwd_vjp).lower(*args, zeros).compile(FAST_COMPILE)
+        outputs, stats, _ = compiled["fn"](*args, zeros)
+        return outputs, stats, lambda ct: compiled["fn"](*args, ct)[2]
+
+    return run
+
+
+def jax_step(variables, events, loss_of_outputs):
+    """JAX's float64 loss, loss terms, gradient and BatchNorm statistics of
+    one training step of TEHNet whose loss is ``loss_of_outputs(outputs)``
+    -> (total, terms): TEHNet's compiled vector-Jacobian product fed the
+    loss's gradient with respect to the outputs."""
+    outputs, stats, vjp = jax_net_vjp()(variables, events)
+    (loss, losses), ct = jax.jit(jax.value_and_grad(loss_of_outputs, has_aux=True))(
+        outputs)
+    return jax.tree.map(np.array, dict(losses=dict(losses, loss=loss), grads=vjp(ct),
+                                       stats=stats))
+
+
+def jax_slice(case):
+    """JAX's float64 slice on ``case`` -> (the selection masks, the loss
+    terms, gradients and BatchNorm statistics)."""
+    batch, events, labels = case["batch"], case["events"], case["labels"]
+    variables = case["variables"]
     models = synthetic_mano_models(0)
     with jax.enable_x64(True):
         f64 = lambda t: jax.tree.map(  # noqa: E731
@@ -118,35 +210,86 @@ def slice_case():
                    "handedness": jnp.asarray(batch["handedness"]),
                    "class_logits": jnp.asarray(labels)}
 
-        def loss_fn(params):
-            outputs, upd = net.apply(
-                {"params": params, "batch_stats": v64["batch_stats"]},
-                jnp.asarray(events), train=True, mutable=["batch_stats"])
-            outputs = jt.apply_mano(hands, outputs)
-            losses = j_mano_losses(outputs, targets, hands, ctx)
-            return j_total_loss(losses), (losses, upd["batch_stats"])
+        def loss_of_outputs(outputs):
+            losses = j_mano_losses(jt.apply_mano(hands, outputs), targets, hands, ctx)
+            return j_total_loss(losses), losses
 
-        def both(params, ev):
-            return (jax.value_and_grad(loss_fn, has_aux=True)(params),
-                    _masks(ev, jp.farthest_point_sample, jp.index_points,
-                           jp.square_distance))
-
-        args = (v64["params"], jnp.asarray(events))
-        ((loss, (losses, stats)), grads), masks = jax.jit(both).lower(
-            *args).compile(FAST_COMPILE)(*args)
-        ref = jax.tree.map(np.array, dict(
-            losses=dict(losses, loss=loss), grads=grads, stats=stats))
-    return dict(batch=batch, events=events, labels=labels, variables=variables,
-                masks=masks, ref=ref)
+        ref = jax_step(v64, jnp.asarray(events), loss_of_outputs)
+        masks = jax.jit(lambda ev: _masks(ev, jp.farthest_point_sample, jp.index_points,
+                                          jp.square_distance))(jnp.asarray(events))
+    return [np.asarray(m) for m in masks], ref
 
 
-def run_port_slice(case, pallas_gather):
-    """The port's forward_losses and backward in float64 on the CPU ->
-    (losses, gradients, BatchNorm buffers, grouped_gather calls, the
-    BatchNorm-cancelled biases)."""
+def run_port_finetune(tmp):
+    """The port's finetuning step in float64 on the CPU: one step on a
+    synthetic Ev2Hands-R batch (written by the JAX package) with seeded
+    weights, on its own ERPC cloud made float64 for the net -> (losses,
+    gradients, BatchNorm buffers, the BatchNorm-cancelled biases, and what
+    JAX's side needs: weights, batch targets, cloud, projection)."""
+    rec = jrs.write_synthetic_ev2hands_r(str(tmp / "rec.pickle"), n_events=20000,
+                                         n_frames=10, seed=5)
+    batch = next(trs.Ev2HandRReader(rec, seed=0, capacity=4096).batches(B))
+    weights = tw.init_weights(torch.Generator().manual_seed(3), ModelConfig(n_points=N))
+    cfg = DEFAULT_CONFIG.replace(model=ModelConfig(n_points=N, fps_deterministic=True,
+                                                   **NO_DROPOUT))
+    net = tt.TEHNet(cfg.model, device="cpu")
+    net.load_state_dict(weights, strict=True)
+    net.double()
+    hands = {s: ManoParams(*(t.double() if t.is_floating_point() else t for t in p))
+             for s, p in ttr.build_hands(cfg, synthetic=True, device="cpu").items()}
+    proj = cfg.camera.projection_matrix(W, H)
+    step = tft.make_finetune_step(net, hands, ttr.build_collision_context(hands), cfg,
+                                  ttr.make_optimizer(net.parameters(), cfg.train), proj,
+                                  device="cpu")
+    clouds = []
+    real = tft.erpc_real_batch_transform
+
+    def float64_cloud(*a, **k):
+        out = real(*a, **k)
+        clouds.append(out.events.double())
+        return out._replace(events=clouds[-1])
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tft, "erpc_real_batch_transform", float64_cloud)
+        losses = step(batch, torch.Generator().manual_seed(0))
+    return dict(losses=losses, grads={k: p.grad.numpy() for k, p in net.named_parameters()},
+                buffers={k: b.numpy() for k, b in net.named_buffers()},
+                cancelled=tt.batchnorm_cancelled_biases(net),
+                jax_case=dict(weights={k: v.numpy() for k, v in weights.items()},
+                              targets={k: batch[k] for k in ("left", "right", "handedness")},
+                              events=clouds[0].numpy(), proj=np.asarray(proj)))
+
+
+def jax_finetune(case):
+    """JAX's float64 finetuning step (``finetune.py:53-64``: TEHNet in
+    training -> MANO -> ``real_losses``) on the port's cloud -> (the loss
+    terms, gradients and BatchNorm statistics)."""
+    variables = jckpt.torch_to_flax(case["weights"])
+    models = synthetic_mano_models(0)
+    faces = jc.build_two_hand_faces(models["left"].faces, models["right"].faces)
+    with jax.enable_x64(True):
+        f64 = lambda t: jax.tree.map(  # noqa: E731
+            lambda a: jnp.asarray(a, jnp.float64)
+            if jnp.issubdtype(jnp.asarray(a).dtype, jnp.floating) else a, t)
+        hands = f64({s: h.params for s, h in create_mano_hands(models).items()})
+        ctx = JCollisionContext(faces=jnp.asarray(faces),
+                                adjacency=jnp.asarray(jc.build_adjacency_mask(faces)))
+        proj = jnp.asarray(case["proj"], jnp.float32)   # as the JAX step holds it
+
+        def loss_of_outputs(outputs):
+            losses = j_real_losses(jt.apply_mano(hands, outputs), case["targets"], ctx, proj,
+                                   W, H, JCFG.loss)
+            return j_total_loss(losses), losses
+
+        return jax_step(f64(variables), jnp.asarray(case["events"]), loss_of_outputs)
+
+
+def run_port_slice(case, **model):
+    """The port's forward_losses and backward in float64 on the CPU, with
+    the ``ModelConfig`` switches ``model`` -> (losses, gradients, BatchNorm
+    buffers, grouped_gather calls, the BatchNorm-cancelled biases)."""
     cfg = DEFAULT_CONFIG.replace(model=ModelConfig(
-        n_points=N, fps_deterministic=True, pallas_gather=pallas_gather,
-        pallas_gather_bwd=pallas_gather, **NO_DROPOUT))
+        n_points=N, fps_deterministic=True, **NO_DROPOUT, **model))
     net = tt.TEHNet(cfg.model, device="cpu")
     net.load_state_dict(tw.flax_to_torch(case["variables"]), strict=True)
     net.double().train()
@@ -179,19 +322,22 @@ def test_slice_selection_masks_agree(slice_case):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-@pytest.mark.parametrize("pallas_gather", [False, True], ids=["index", "onehot"])
-def test_train_slice_matches_jax_f64(slice_case, pallas_gather):
-    """The port on both grouping routes (the one-hot route through K8/K9's
-    plain versions) against JAX's index route (its one-hot gate is off on
-    the CPU): loss terms within rtol 1e-7; per-tensor gradient cosine
-    >= 1 - 1e-9 and norm ratio within 1e-6; BatchNorm running statistics
-    within rtol 1e-7. The biases whose shift a later train-mode BatchNorm
-    removes (``batchnorm_cancelled_biases``) have a zero gradient, rounding
-    noise on both sides, and are left out."""
+@pytest.mark.parametrize("route", ["index", "onehot", "uv"])
+def test_train_slice_matches_jax_f64(slice_case, route):
+    """The port on the three gather routes (the one-hot route through
+    K8/K9's plain versions) against JAX's index route (its one-hot gate is
+    off on the CPU; its u/v-split route equals its index route within 1e-9,
+    ``tests/test_model.py:465``): loss terms within rtol 1e-7; per-tensor
+    gradient cosine >= 1 - 1e-9 and norm ratio within 1e-6; BatchNorm
+    running statistics within rtol 1e-7. The biases whose shift a later
+    train-mode BatchNorm removes (``batchnorm_cancelled_biases``) have a
+    zero gradient, rounding noise on both sides, and are left out. The u/v
+    route is also held at ``tests/test_model.py:465``'s bounds between
+    JAX's two routes: loss terms and BatchNorm statistics within rtol =
+    atol = 1e-9, the whole gradient's relative distance below 1e-8."""
     ref = slice_case["ref"]
-    losses, grads, buffers, gathers, cancelled = run_port_slice(
-        slice_case, pallas_gather)
-    assert gathers == (4 if pallas_gather else 0)
+    losses, grads, buffers, gathers, cancelled = slice_case["port"][route]
+    assert gathers == (4 if route == "onehot" else 0)
     assert set(losses) == set(ref["losses"])
     assert ref["losses"]["loss_interpen"] > 0
     for k, v in ref["losses"].items():
@@ -211,6 +357,42 @@ def test_train_slice_matches_jax_f64(slice_case, pallas_gather):
     for k, v in buffers.items():
         np.testing.assert_allclose(v, rgrads[k].numpy(), rtol=1e-7, atol=1e-12,
                                    err_msg=k)
+    if route == "uv":
+        for k, v in ref["losses"].items():
+            np.testing.assert_allclose(losses[k], v, rtol=1e-9, atol=1e-9, err_msg=k)
+        for k, v in buffers.items():
+            np.testing.assert_allclose(v, rgrads[k].numpy(), rtol=1e-9, atol=1e-9,
+                                       err_msg=k)
+        keys = sorted(set(grads) - cancelled)
+        a = np.concatenate([grads[k].ravel() for k in keys])
+        b = np.concatenate([rgrads[k].numpy().ravel() for k in keys])
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-8
+
+
+def test_finetune_step_matches_jax_f64(slice_case):
+    """``finetune.make_finetune_step`` against JAX's finetuning step in
+    float64, on the port's cloud: loss terms within rtol 1e-7; per-tensor
+    gradient cosine >= 1 - 1e-9 and norm ratio within 1e-6, the
+    BatchNorm-cancelled biases left out; BatchNorm running statistics within
+    rtol 1e-7."""
+    port = slice_case["finetune"]
+    ref = port["ref"]
+    losses, grads = port["losses"], port["grads"]
+    assert set(losses) == set(ref["losses"])
+    assert ref["losses"]["loss_interpen"] > 0
+    for k, v in ref["losses"].items():
+        np.testing.assert_allclose(losses[k], v, rtol=1e-7, atol=1e-12, err_msg=k)
+    rtree = tw.flax_to_torch({"params": ref["grads"], "batch_stats": ref["stats"]})
+    bad = []
+    for k in sorted(set(grads) - port["cancelled"]):
+        a, b = grads[k].ravel(), rtree[k].numpy().ravel()
+        na, nb = np.linalg.norm(a), np.linalg.norm(b)
+        cos = float(a @ b / (na * nb + 1e-300))
+        if cos < 1 - 1e-9 or not abs(na / nb - 1) <= 1e-6:
+            bad.append((k, cos, na / nb))
+    assert not bad, bad
+    for k, v in port["buffers"].items():
+        np.testing.assert_allclose(v, rtree[k].numpy(), rtol=1e-7, atol=1e-12, err_msg=k)
 
 
 # --- the parts --------------------------------------------------------------
