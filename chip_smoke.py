@@ -7,8 +7,10 @@ Phases (any failed check raises, so the script exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the port from ev2hands_tpu_torch/csrc with nvcc
      for sm_90a, one process per source, timed, and print each kernel
-     function's registers, stack frame and spill bytes from ptxas; then the
-     host batch loader (csrc/ev2hands_loader.cpp) with g++;
+     function's registers, stack frame and spill bytes from ptxas, and the
+     tensor-core MMA instructions in the ball kernel's SASS (cuobjdump;
+     none fails); then the host batch loader (csrc/ev2hands_loader.cpp)
+     with g++;
   3. the FPS kernel against its plain version on ERPC clouds at its three
      shapes (2048->512, 512->128, 2048->128) at the serving batch (B=16),
      the training batch (B=8, random starts) and the evaluation batch
@@ -29,18 +31,24 @@ Phases (any failed check raises, so the script exits non-zero):
      (stacked scales, union tile activity): max abs diff <= 1e-4 against its
      plain version, and its difference from phase 4's three sections;
      prints the union activity and each scale's selected pairs;
- 4c. the dense grouping ops (csrc/msg_dense.cu; no model path runs them) on
-     the same sa1 inputs, each scale folded in original point order: each
-     of the four wrappers once a scale, counted (3 launches each), within
-     1e-4 of its plain version; the mask ops (dense_msg_scale_2d,
+ 4c. the dense grouping ops (the mask kernel of csrc/msg_dense.cu, the
+     ball kernel of csrc/msg_ball.cu; no model path runs them) on the same
+     sa1 inputs, each scale folded in original point order: each of the
+     four wrappers once a scale, counted (3 launches each), within 1e-4 of
+     its plain version; the mask ops (dense_msg_scale_2d,
      dense_msg_scale_2d_batched) within 1e-4 of phase 4's K2 output (and
      whether they are bitwise equal to it: one chain on the same rows), the
      in-kernel-selection ops (fused_msg_scale, dense_msg_scale) within 1e-4
      of the mask op on every (b, s) whose selection equals
-     dense_selection_mask's (the others are counted and printed); each
-     timed with its plain version and its bound; then dense_msg_scale_2d
-     and fused_msg_scale timed at the regressor heads' two sa1 scales
-     beside the model's dense route (_dense_scale) on the same inputs;
+     dense_selection_mask's (the others are counted and printed), and
+     bitwise equal to each other; each timed with its plain version and
+     its bound (the mask kernel's at the f32 rate; the ball kernel's at the
+     tensor cores' rate, three TF32 products for each f32 product, with the
+     f32 bound beside it); the ball kernel timed at 4, 8, 16 and
+     32 centroids a CTA; then dense_msg_scale_2d and fused_msg_scale at the
+     regressor heads' two sa1 scales beside the model's dense route
+     (_dense_scale) on the same inputs, fused_msg_scale within 1e-4 of its
+     plain version, with the selected pairs, both bounds and the sweep;
   5. serving: InferencePipeline at full TEHNet width (B=16, N=2048, seeded
      weights, synthetic MANO) answers 4 requests with exactly 3 FPS and 3
      grouping launches per request and finite outputs; then 2 windows of one
@@ -259,9 +267,15 @@ import sys
 import tempfile
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) flop/s
+# and dense TF32 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+# the ball kernel (csrc/msg_ball.cu): TF32 products for each f32 product
+# (the 3xTF32 split), and the centroids a CTA that phase 4c sweeps
+BALL_SPLIT = 3
+BALL_TILES = (4, 8, 16, 32)
 B, N = 16, 2048
 REQUESTS = 4
 TRAIN_B = 8
@@ -278,6 +292,8 @@ EVAL_PER_BATCH = {"fps": 3, "msg_sparse": 3}
 # the one-hot gathers of a training step, in call order
 GATHER_LAYERS = ("sa1", "sa2", "left regressor sa1", "right regressor sa1")
 # the dense grouping ops: wrapper, the JAX function it ports, takes a mask
+# (the mask kernel of csrc/msg_dense.cu) or selects in the kernel (the ball
+# kernel of csrc/msg_ball.cu)
 DENSE_OPS = (
     ("dense_msg_scale", "ev2hands_tpu/ops/pallas_grouping.py:203", False),
     ("dense_msg_scale_2d", "ev2hands_tpu/ops/pallas_grouping.py:304", True),
@@ -358,6 +374,15 @@ def ptxas_report(build_logs, nvcc):
     names = demangle([r[1] for r in rows], nvcc) if rows else []
     for (source, _, regs, frame), name in zip(rows, names):
         log(f"  ptxas {source} {name}: {regs} registers, {frame}")
+
+
+def sass_mma_count(lib_path, nvcc):
+    """Tensor-core MMA instructions (HMMA, HGMMA) in the SASS of a built
+    library, from the toolkit's cuobjdump beside ``nvcc``."""
+    out = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                          lib_path], capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    return sum(1 for line in out.splitlines() if re.search(r"\bHG?MMA\.", line))
 
 
 def cuda_ms(torch, fn, iters, warmup=2):
@@ -674,12 +699,25 @@ def dense_ops_phase(torch, kgrp, sa1, l0, events, new_xyz, sq, k2_outs):
                        ms=cuda_ms(torch, call(name, s), 20),
                        plain_ms=cuda_ms(torch, call(name, s, plain=True), 3, 1),
                        ops=ops, bytes=nbytes)
-            row["bound_ms"], row["bound_by"] = bound(ops, nbytes)
+            # the mask kernel runs f32 outside the tensor cores, the ball
+            # kernel on them: each is held to the rate of what it runs
+            row["bound_ms"], row["bound_by"] = (bound if takes_mask else tc_bound)(ops, nbytes)
+            f32 = ""
+            if not takes_mask:
+                row["tc_bound_ms"] = row["bound_ms"]
+                row["f32_bound_ms"] = bound(ops, nbytes)[0]
+                f32 = f", f32 bound {row['f32_bound_ms']:.5f} ms"
             rows[name].append(row)
             log(f"{name} scale {s} {C1, C2, C3}: {n_sel} selected pairs, max abs "
                 f"diff {err:.3g} from its plain version, {vs_err:.3g} from {versus}; "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
-                f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+                f"{row['bound_ms']:.5f} ms ({row['bound_by']}){f32}")
+        ball = outs["fused_msg_scale"][s]
+        if not torch.equal(ball, outs["dense_msg_scale"][s]):
+            raise AssertionError(f"scale {s}: fused_msg_scale and dense_msg_scale differ")
+        sweep = ball_sweep(torch, kgrp, l0, new_xyz, folded, r, k, ball)
+        for name in ("fused_msg_scale", "dense_msg_scale"):
+            rows[name][-1]["tile_ms"] = sweep
     return rows, launches
 
 
@@ -687,10 +725,12 @@ def heads_dense_timing(torch, kgrp, sa, l0, feats, new_xyz):
     """Phase 4c, end: dense_msg_scale_2d and fused_msg_scale at a regressor
     head's sa1 scales beside the model's dense route on the same inputs,
     ``feats`` standing in for the attention features (measurements only:
-    the heads' path stays on the dense route)."""
+    the heads' path stays on the dense route); fused_msg_scale within 1e-4
+    of its plain version -> a row a scale (pairs, times, bounds)."""
     from ev2hands_tpu_torch.ops.pointnet import square_distance
 
     sq = square_distance(new_xyz, l0)
+    rows = []
     for i, (r, k) in enumerate(zip(sa.radius_list, sa.nsample_list)):
         folded = sa.folded_scale(i, l0, feats, new_xyz)
         sel = kgrp.dense_selection_mask(sq, r, k)
@@ -702,13 +742,36 @@ def heads_dense_timing(torch, kgrp, sa, l0, feats, new_xyz):
         outs = {name: fn() for name, fn in runs.items()}
         diffs = {name: (outs[name] - outs["_dense_scale"]).abs().max().item()
                  for name in ("dense_msg_scale_2d", "fused_msg_scale")}
+        err = (outs["fused_msg_scale"] - kgrp.dense_msg_scale_plain(
+            l0, new_xyz, folded, r, k)).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"heads sa1 scale {i}: fused_msg_scale max abs diff "
+                                 f"{err} from its plain version")
         ms = {name: cuda_ms(torch, fn, 3 if name == "_dense_scale" else 20, 1)
               for name, fn in runs.items()}
-        log(f"heads sa1 scale {i} {tuple(folded.W2.shape) + (folded.W3.shape[1],)} "
-            f"r={r} K={k} S={new_xyz.shape[1]}: " + ", ".join(
+        C1, C2 = folded.W2.shape
+        C3 = folded.W3.shape[1]
+        pairs = int(kgrp.ball_selection_mask(l0, new_xyz, r, k).sum().item())
+        ops = pairs * 2 * (C1 * C2 + C2 * C3)
+        nbytes = 4 * sum(t.numel() for t in (*folded, outs["fused_msg_scale"], l0, new_xyz))
+        row = dict(scale=i, widths=[C1, C2, C3], radius=r, nsample=k,
+                   S=new_xyz.shape[1], selected_pairs=pairs, max_abs_err=err,
+                   ms=ms["fused_msg_scale"], mask_ms=ms["dense_msg_scale_2d"],
+                   dense_scale_ms=ms["_dense_scale"], ops=ops, bytes=nbytes,
+                   f32_bound_ms=bound(ops, nbytes)[0])
+        row["bound_ms"], row["bound_by"] = tc_bound(ops, nbytes)
+        row["tc_bound_ms"] = row["bound_ms"]
+        log(f"heads sa1 scale {i} {C1, C2, C3} r={r} K={k} S={new_xyz.shape[1]}: "
+            f"{pairs} selected pairs; " + ", ".join(
                 f"{name} {t:.4f} ms" for name, t in ms.items())
-            + "; max abs diff from _dense_scale " + ", ".join(
-                f"{name} {d:.3g}" for name, d in diffs.items()))
+            + f"; bound (tensor cores) {row['bound_ms']:.5f} ms ({row['bound_by']}), "
+            f"f32 bound {row['f32_bound_ms']:.5f} ms; fused_msg_scale max abs diff "
+            f"{err:.3g} from its plain version; max abs diff from _dense_scale "
+            + ", ".join(f"{name} {d:.3g}" for name, d in diffs.items()))
+        row["tile_ms"] = ball_sweep(torch, kgrp, l0, new_xyz, folded, r, k,
+                                    outs["fused_msg_scale"])
+        rows.append(row)
+    return rows
 
 
 def bound(ops, nbytes):
@@ -716,6 +779,38 @@ def bound(ops, nbytes):
     bytes on the card's published peaks."""
     t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def tc_bound(ops, nbytes):
+    """(least ms, what bounds it) for the ball kernel: its ``ops`` f32
+    operations as BALL_SPLIT TF32 products each at the dense TF32 peak, or
+    ``nbytes`` at the HBM rate, whichever is longer."""
+    t_ops, t_bytes = BALL_SPLIT * ops / TF32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def ball_sweep(torch, kgrp, xyz, new_xyz, folded, r, k, want):
+    """The ball kernel at each of BALL_TILES centroids a CTA -> ms by tile;
+    every tile's output must be ``want``'s bits (a row's chain does not
+    depend on the rows packed beside it; the max is exact)."""
+    widths = (*folded.W2.shape, folded.W3.shape[1])
+    tile_ms, plans = {}, []
+    for t in BALL_TILES:
+        def run(t=t):
+            return kgrp._launch_ball("ball sweep", xyz, new_xyz, folded, r, k, tile=t)
+
+        if not torch.equal(run(), want):
+            raise AssertionError(f"ball kernel at tile {t}: not the bits of the "
+                                 f"wrappers' launch")
+        tile_ms[t] = cuda_ms(torch, run, 20)
+        plan = kgrp.ball_plan(widths, *new_xyz.shape[:2], xyz.shape[1], k, t)
+        plans.append(f"{t}: {tile_ms[t]:.4f} ms ({plan['tile']} a CTA, "
+                     f"{'streamed' if plan['streamed'] else 'resident'} weights, "
+                     f"{plan['smem_bytes']} B)")
+    chosen = kgrp.ball_plan(widths, *new_xyz.shape[:2], xyz.shape[1], k)
+    log(f"  ball kernel by centroids a CTA (the wrappers' choice {chosen['tile']}): "
+        + "; ".join(plans))
+    return tile_ms
 
 
 def fake_batch(np, seed, batch_size, n=N, width=346, height=260):
@@ -3515,6 +3610,10 @@ def main() -> int:
     log(f"build: csrc/ev2hands_loader.cpp (the host batch loader) -> g++ in "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas_report(_build.build_logs, _build.nvcc_path())
+    n_mma = sass_mma_count(_build._target("msg_ball"), _build.nvcc_path())
+    log(f"sass csrc/msg_ball.cu: {n_mma} tensor-core MMA instructions")
+    if n_mma == 0:
+        raise AssertionError("csrc/msg_ball.cu: no tensor-core MMA instruction in its SASS")
 
     cfg = DEFAULT_CONFIG.replace(model=ModelConfig(n_points=N))
     state = init_weights(torch.Generator().manual_seed(0), cfg.model)
@@ -3600,8 +3699,8 @@ def main() -> int:
         heads_sa1 = pipe.net.left_mano_regressor.sa1
         feats = torch.randn((B, N, cfg.model.num_classes), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(5))
-        heads_dense_timing(torch, kgrp, heads_sa1, l0, feats,
-                           index_points(l0, kfps.fps(l0, heads_sa1.npoint)))
+        heads_rows = heads_dense_timing(torch, kgrp, heads_sa1, l0, feats,
+                                        index_points(l0, kfps.fps(l0, heads_sa1.npoint)))
         del feats
 
         # 5. serving: 4 requests through the entry point, counted
@@ -3798,9 +3897,23 @@ def main() -> int:
               "ev2hands_tpu/ops/pallas_gather.py:230",
               [r for r in scatter_rows if r["on_path"]],
               max(r["max_abs_err"] for r in scatter_rows), library=True),
-    ] + [entry(name, "ev2hands_tpu_torch/csrc/msg_dense.cu", replaces, dense_rows[name],
-               max(r["max_abs_err"] for r in dense_rows[name]))
-         for name, replaces, _ in DENSE_OPS]
+    ] + [entry(name, "ev2hands_tpu_torch/csrc/"
+               + ("msg_dense.cu" if takes_mask else "msg_ball.cu"), replaces,
+               dense_rows[name], max(r["max_abs_err"] for r in dense_rows[name]))
+         for name, replaces, takes_mask in DENSE_OPS]
+    # the ball kernel: its bound is the tensor-core one (tc_bound_ms, the
+    # same number); beside it the f32 bound over the same pass, the sweep of
+    # centroids a CTA by scale, and the heads' two scales
+    for kern in kernels:
+        if kern["name"] in ("fused_msg_scale", "dense_msg_scale"):
+            rows = dense_rows[kern["name"]]
+            kern.update(tc_bound_ms=kern["bound_ms"],
+                        f32_bound_ms=sum(r["f32_bound_ms"] for r in rows),
+                        tile_ms=[r["tile_ms"] for r in rows],
+                        heads=[{key: r[key] for key in (
+                            "widths", "S", "selected_pairs", "max_abs_err", "ms",
+                            "bound_ms", "bound_by", "f32_bound_ms", "tile_ms")}
+                            for r in heads_rows])
     # K1's chain floor over the same pass, every shape of phase 3 and the
     # sweep
     kernels[0].update(

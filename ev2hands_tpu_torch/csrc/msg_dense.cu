@@ -1,18 +1,16 @@
 // Multi-scale grouping on Hopper (sm_90a): one MSG scale pooled over the
-// points that each centroid selects, with the selection given as a mask,
-// made in the kernel, or given as a mask over Morton-ordered points with a
-// tile-activity map (block-sparse, one launch for all scales of a layer).
+// points that each centroid selects, with the selection given as a mask, or
+// given as a mask over Morton-ordered points with a tile-activity map
+// (block-sparse, one launch for all scales of a layer).
 //
-// Replaces six TPU kernels of ev2hands_tpu/ops/pallas_grouping.py, which
-// compute one function in three groups:
+// Replaces four TPU kernels of ev2hands_tpu/ops/pallas_grouping.py, which
+// compute one function in two groups (csrc/msg_ball.cu replaces the two
+// that select in the kernel, fused_msg_scale_pallas and
+// dense_msg_scale_pallas):
 //  * msg_dense_mask_kernel takes the selection as a mask sel [B, S, N] in
 //    original point order (dense_selection_mask, which carries the point-0
 //    fallback): dense_msg_scale_pallas_2d (_kernel_2d) and
 //    dense_msg_scale_pallas_2d_batched (_kernel_2d_batched);
-//  * msg_dense_ball_kernel selects in the kernel the first nsample points by
-//    index whose squared distance to the centroid is <= r2, and point 0 for
-//    an empty ball: fused_msg_scale_pallas (_kernel_fused) and
-//    dense_msg_scale_pallas (_kernel);
 //  * msg_sparse_kernel takes R scales stacked by stack_folded_scales (u
 //    [B, N, C1t] and v [B, S, C1t] concatenate the scales' first layers, W2
 //    [C1t, C2t] and W3 [C2t, C3t] are block-diagonal), each scale's mask
@@ -32,29 +30,19 @@
 // exact +0.0 terms, and a row that scale r does not select never reaches
 // section r, so the values are the same with no wasted work.
 //
-// Selection exactness: d2 = ((cx - x)^2 + (cy - y)^2) + (cz - z)^2 is
-// computed with one rounding per operation (__fsub_rn, __fmul_rn,
-// __fadd_rn: never contracted into an FMA), the order of _kernel_fused and
-// of the plain version, and compared with r2 rounded once to f32 by the
-// caller, so a point on the radius is in or out exactly as there. Ranks come
-// from ballots in index order, so the first nsample are the plain version's.
-//
 // What bounds it on this card: the work is 2 * (C1 * C2 + C2 * C3) flops for
 // each selected pair; the bytes are u, v, the weights, the output and either
 // the [B, S, N] f32 mask (the sparse kernel: R mask slices of nb floats for
-// each union-active tile) or xyz. At sa1's and the regressor heads' shapes
-// the f32 operations bound it, except the narrowest sa1 scale on its own,
-// which its bytes bound.
+// each union-active tile). At sa1's and the regressor heads' shapes the f32
+// operations bound it, except the narrowest sa1 scale on its own, which its
+// bytes bound.
 //
 // Design (simple first; no tensor cores or TMA yet). The TPU kernels ran
-// the chain over all N points of a centroid and masked the max (the
-// selection-in-kernel ones also carried a running rank across point
-// tiles). Here a CTA of 256 threads takes one (b, s), or the sparse kernel's
-// kCentroids of them: it compacts the selected point indices into a shared
-// list (the mask kernel from its mask row, any number of them; the ball
-// kernel by a walk over the points in index order, 256 at a time, that
-// stops once nsample are found, which the TPU's fixed grid could not; the
-// sparse kernel from its scale's mask row on the union-active tiles only),
+// the chain over all N points of a centroid and masked the max. Here a CTA
+// of 256 threads takes one (b, s), or the sparse kernel's kCentroids of
+// them: it compacts the selected point indices into a shared list (the mask
+// kernel from its mask row, any number of them; the sparse kernel from its
+// scale's mask row on the union-active tiles only),
 // then runs one chain (pool_rows) over the list only, 32 rows at a time, so
 // it does the selected pairs' work and no more. Widths up to C1 = 128,
 // C2 = 256, C3 = 256 in any combination (TEHNet's widest MSG scale is
@@ -68,16 +56,15 @@
 // (>= +0.0) or the -1e30 it starts from. The sparse kernel's grid is
 // (centroid block, b, scale), widest scale first; each CTA's shared memory
 // is its two tiles, v, the running max and the list, so several fit on an
-// SM. Every path accumulates each output in the same f32 order (FMA over
-// the input channels ascending from 0.0f), so the three kernels agree
-// bitwise on the same selected rows.
+// SM. Both paths accumulate each output in the same f32 order (FMA over
+// the input channels ascending from 0.0f), so the two kernels agree bitwise
+// on the same selected rows.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 32;        // selected rows in the chain at a time
 constexpr int kLd = kRows + 4;   // row stride of the transposed tiles
 constexpr int kRB = 8;           // rows a thread carries through a layer
@@ -232,62 +219,6 @@ msg_dense_mask_kernel(const float* __restrict__ u, const float* __restrict__ v,
             Chain{W2, b2, W3, b3, c1, c2, c3, c1, c2, c3}, out + bs * c3);
 }
 
-__global__ void __launch_bounds__(kThreads)
-msg_dense_ball_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
-                      const float* __restrict__ u, const float* __restrict__ v,
-                      const float* __restrict__ W2, const float* __restrict__ b2,
-                      const float* __restrict__ W3, const float* __restrict__ b3,
-                      float* __restrict__ out, int S, int N, int c1, int c2, int c3,
-                      float r2, int nsample) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int count;              // in-radius points found so far
-  __shared__ int warp_in[kWarps];    // in-radius points of each warp's 32
-  const Shared sh = carve(smem, c1, c2, c3);
-  const int b = blockIdx.y;
-  const size_t bs = static_cast<size_t>(b) * S + blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float cx = new_xyz[bs * 3], cy = new_xyz[bs * 3 + 1], cz = new_xyz[bs * 3 + 2];
-  const float* x_b = xyz + static_cast<size_t>(b) * N * 3;
-  if (threadIdx.x == 0) count = 0;
-  start_centroid(sh, v + bs * c1, c1, c3);
-  __syncthreads();
-
-  // `count` is read after a sync, so every thread takes the same branch
-  for (int t0 = 0; t0 < N && count < nsample; t0 += kThreads) {
-    const int n = t0 + threadIdx.x;
-    bool in = false;
-    if (n < N) {
-      const float dx = __fsub_rn(cx, x_b[3 * n]);
-      const float dy = __fsub_rn(cy, x_b[3 * n + 1]);
-      const float dz = __fsub_rn(cz, x_b[3 * n + 2]);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      in = d2 <= r2;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, in);
-    if (lane == 0) warp_in[warp] = __popc(ballot);
-    __syncthreads();
-    int rank = count + __popc(ballot & ((1u << lane) - 1u));
-    for (int w = 0; w < warp; ++w) rank += warp_in[w];
-    if (in && rank < nsample) sh.rows[rank] = n;
-    __syncthreads();   // all have read count and warp_in
-    if (threadIdx.x == 0) {
-      int t = 0;
-      for (int w = 0; w < kWarps; ++w) t += warp_in[w];
-      count += t;
-    }
-    __syncthreads();
-  }
-  int nsel = min(count, nsample);
-  if (nsel == 0) {   // an empty ball pools point 0's chain
-    nsel = 1;
-    if (threadIdx.x == 0) sh.rows[0] = 0;
-    __syncthreads();
-  }
-  pool_rows(sh, nsel, u + static_cast<size_t>(b) * N * c1,
-            Chain{W2, b2, W3, b3, c1, c2, c3, c1, c2, c3}, out + bs * c3);
-}
-
 // The per-scale blocks of the sparse kernel's stacked operands: scale r's
 // widths and its offsets into the stacked channels C1t, C2t, C3t.
 struct Blocks {
@@ -379,9 +310,9 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 }  // namespace
 
-// Dynamic shared memory of a launch, in bytes, for widths (c1, c2, c3) and a
-// list of `list` point indices (N for the mask kernel, min(nsample, N) or 1
-// for the ball kernel); 0 when the widths do not fit the kernels.
+// Dynamic shared memory of a mask launch, in bytes, for widths (c1, c2, c3)
+// and a list of `list` point indices (N); 0 when the widths do not fit the
+// kernels.
 extern "C" size_t msg_dense_smem_bytes(int c1, int c2, int c3, int list) {
   if (!widths_ok(c1, c2, c3) || list < 1) return 0;
   return smem_bytes(c1, c2, c3, list);
@@ -402,25 +333,6 @@ extern "C" int msg_dense_mask_launch(const float* u, const float* v, const float
   if (err != cudaSuccess) return static_cast<int>(err);
   msg_dense_mask_kernel<<<dim3(S, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       u, v, sel, W2, b2, W3, b3, out, S, N, c1, c2, c3);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// xyz [B, N, 3], new_xyz [B, S, 3] and the operands of the mask launch but
-// the mask; r2 the squared radius in f32, nsample >= 1. Returns the CUDA
-// error of the launch (0 = success).
-extern "C" int msg_dense_ball_launch(const float* xyz, const float* new_xyz,
-                                     const float* u, const float* v, const float* W2,
-                                     const float* b2, const float* W3, const float* b3,
-                                     float* out, int B, int S, int N, int c1, int c2,
-                                     int c3, float r2, int nsample, void* stream) {
-  if (!widths_ok(c1, c2, c3) || B < 1 || S < 1 || N < 1 || nsample < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = smem_bytes(c1, c2, c3, nsample < N ? nsample : N);
-  cudaError_t err = prepare(msg_dense_ball_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  msg_dense_ball_kernel<<<dim3(S, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xyz, new_xyz, u, v, W2, b2, W3, b3, out, S, N, c1, c2, c3, r2, nsample);
   return static_cast<int>(cudaGetLastError());
 }
 

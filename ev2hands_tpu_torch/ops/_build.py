@@ -24,7 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host")
 
 # Every kernel source of the port: csrc/<name>.cu
-KERNELS = ("fps", "gather", "msg_dense")
+KERNELS = ("fps", "gather", "msg_dense", "msg_ball")
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

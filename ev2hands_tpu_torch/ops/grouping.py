@@ -44,8 +44,10 @@ wrapper named after its Pallas function:
   (``dense_msg_scale_plain`` on a CPU tensor).
 
 On a CUDA tensor the first two launch the mask kernel of
-``csrc/msg_dense.cu`` and the last two its ball kernel. All three kernels
-run one chain, so they share its width limits (``_MAX_WIDTHS``).
+``csrc/msg_dense.cu`` and the last two the ball kernel of
+``csrc/msg_ball.cu``, which runs the chain on tensor cores in the 3xTF32
+split (within 1e-4 of the mask kernel on the same rows, not bitwise). All
+four kernels take the same widths (``_MAX_WIDTHS``).
 """
 
 from __future__ import annotations
@@ -235,16 +237,41 @@ def _lib() -> ctypes.CDLL:
     lib.msg_dense_mask_launch.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.msg_dense_mask_launch.restype = ctypes.c_int
-    lib.msg_dense_ball_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                                      ctypes.c_void_p])
-    lib.msg_dense_ball_launch.restype = ctypes.c_int
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _ball_lib() -> ctypes.CDLL:
+    lib = _build.load("msg_ball")
+    lib.msg_ball_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    lib.msg_ball_plan.restype = ctypes.c_int
+    lib.msg_ball_launch.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.msg_ball_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def ball_plan(widths: Tuple[int, int, int], B: int, S: int, N: int, nsample: int,
+              tile: int = 0) -> Optional[dict]:
+    """The ball kernel's layout for these widths, B x S centroids, N points
+    and nsample: the centroids a CTA (``tile``, at most 32, or for 0 the
+    kernel's choice from B and S, the most that still fill the SMs; fewer
+    where shared memory is short), whether the weights stream
+    through shared memory in panels or stay resident, the points of a walk
+    chunk, the shared memory in bytes and the rows of a row tile; None when
+    it does not fit. Cached: callers do not edit the dict."""
+    info = (ctypes.c_int * 5)()
+    if not _ball_lib().msg_ball_plan(*widths, B, S, N, nsample, tile, info):
+        return None
+    return {"tile": info[0], "streamed": bool(info[1]), "chunk": info[2],
+            "smem_bytes": info[3], "rows": info[4]}
+
+
 # Most scales the block-sparse kernel takes, and the widest (C1, C2, C3) of a
-# scale that the chain of csrc/msg_dense.cu takes; TEHNet's widest MSG scale
-# is (128, 196, 256).
+# scale that the chains of csrc/msg_dense.cu and csrc/msg_ball.cu take;
+# TEHNet's widest MSG scale is (128, 196, 256).
 _MAX_SCALES = 3
 _MAX_WIDTHS = (128, 256, 256)
 
@@ -490,10 +517,9 @@ def _on_cpu(name: str, t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def _dense_operands(name: str, f: FoldedScale, extra: dict, list_len: int):
+def _dense_operands(name: str, f: FoldedScale, extra: dict):
     """Check ``f`` and the ``extra`` tensors (name -> (tensor, wanted
-    shape)) against the dense kernels -> (data pointers of the contiguous
-    operands by name, the library)."""
+    shape)) against the dense kernels -> the contiguous operands by name."""
     B, N, C1 = f.u.shape
     S = f.v.shape[1]
     C2, C3 = f.W2.shape[1], f.W3.shape[1]
@@ -508,18 +534,17 @@ def _dense_operands(name: str, f: FoldedScale, extra: dict, list_len: int):
     if not _widths_fit((C1, C2, C3)):
         raise ValueError(f"{name}: widths {(C1, C2, C3)} exceed the kernel's "
                          f"{_MAX_WIDTHS}")
-    lib = _lib()
-    if lib.msg_dense_smem_bytes(C1, C2, C3, list_len) > _MAX_SMEM:
-        raise ValueError(f"{name}: N={N} does not fit the kernel's shared memory")
-    contiguous = {k: t.contiguous() for k, t in named.items()}
-    return contiguous, lib
+    return {k: t.contiguous() for k, t in named.items()}
 
 
 def _launch_mask(name: str, f: FoldedScale, sel: torch.Tensor) -> torch.Tensor:
     B, N, C1 = f.u.shape
     S = f.v.shape[1]
     C2, C3 = f.W2.shape[1], f.W3.shape[1]
-    t, lib = _dense_operands(name, f, {"sel": (sel, (B, S, N))}, N)
+    t = _dense_operands(name, f, {"sel": (sel, (B, S, N))})
+    lib = _lib()
+    if lib.msg_dense_smem_bytes(C1, C2, C3, N) > _MAX_SMEM:
+        raise ValueError(f"{name}: N={N} does not fit the kernel's shared memory")
     out = torch.empty((B, S, C3), dtype=torch.float32, device=f.u.device)
     with torch.cuda.device(out.device):
         err = lib.msg_dense_mask_launch(
@@ -532,20 +557,26 @@ def _launch_mask(name: str, f: FoldedScale, sel: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_ball(name: str, xyz: torch.Tensor, new_xyz: torch.Tensor,
-                 f: FoldedScale, radius: float, nsample: int) -> torch.Tensor:
+                 f: FoldedScale, radius: float, nsample: int,
+                 tile: int = 0) -> torch.Tensor:
+    """The ball kernel of ``csrc/msg_ball.cu`` at ``tile`` centroids a CTA
+    (0, the kernel's choice, for the wrappers; chip_smoke.py's sweep sets
+    others)."""
     B, N, C1 = f.u.shape
     S = f.v.shape[1]
     C2, C3 = f.W2.shape[1], f.W3.shape[1]
-    t, lib = _dense_operands(
-        name, f, {"xyz": (xyz, (B, N, 3)), "new_xyz": (new_xyz, (B, S, 3))},
-        min(nsample, N))
+    t = _dense_operands(
+        name, f, {"xyz": (xyz, (B, N, 3)), "new_xyz": (new_xyz, (B, S, 3))})
+    if ball_plan((C1, C2, C3), B, S, N, nsample, tile) is None:
+        raise ValueError(f"{name}: N={N}, nsample={nsample} do not fit the kernel's "
+                         f"shared memory")
     out = torch.empty((B, S, C3), dtype=torch.float32, device=f.u.device)
     with torch.cuda.device(out.device):
-        err = lib.msg_dense_ball_launch(
+        err = _ball_lib().msg_ball_launch(
             *(t[k].data_ptr() for k in ("xyz", "new_xyz", "u", "v", "W2", "b2", "W3", "b3")),
             out.data_ptr(), B, S, N, C1, C2, C3,
             radius * radius,   # ctypes rounds it once to f32
-            nsample, torch.cuda.current_stream().cuda_stream)
+            nsample, tile, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out

@@ -437,6 +437,82 @@ def test_msg_dense_ball_kernel_exact_on_the_radius(cuda):
                                                    sb=8))
 
 
+def _ball_counts_case(rng, counts, widths, device, N=2048, radius=0.2, B=2):
+    """Centroid s at (s, 0, 0) with counts[s] points (b's rows shuffled)
+    inside its ball at random indices, every other point far from all
+    centroids, and a random folded scale."""
+    S = len(counts)
+    new_xyz = np.zeros((B, S, 3), np.float32)
+    new_xyz[..., 0] = np.arange(S, dtype=np.float32)
+    xyz = rng.uniform(-1, 1, (B, N, 3)).astype(np.float32)
+    xyz[..., 1:] += 5.0
+    for b in range(B):
+        order = rng.permutation(S)
+        at = rng.permutation(N)
+        used = 0
+        for s in order:
+            n = counts[s]
+            d = rng.randn(n, 3)
+            d *= (rng.uniform(0, 0.9 * radius, n) / np.linalg.norm(d, axis=1))[:, None]
+            xyz[b, at[used:used + n]] = new_xyz[b, s] + d.astype(np.float32)
+            used += n
+    return (torch.from_numpy(xyz).to(device), torch.from_numpy(new_xyz).to(device),
+            _folded(rng, B, S, N, widths, device))
+
+
+# the ball kernel's layouts: rows of one centroid across a 64-row tile, full
+# and empty balls in one tile of centroids, S not a multiple of the tile, N
+# of 200 (nb = 8) and 8192, widths that are not multiples of 8 (or 4), and
+# the padded (128, 196, 256); each (widths, N, nsample, counts)
+BALL_CASES = {
+    "across_tiles": ((64, 96, 128), 2048, 64, [70, 40, 40, 64, 63, 65, 1, 100] * 4),
+    "full_and_empty": ((32, 32, 64), 2048, 32, [0, 32, 0, 200, 5, 0, 31, 33] * 4),
+    "S37": ((64, 64, 128), 2048, 64, [0, 64, 13, 90, 30] * 7 + [64, 2]),
+    "N200": ((24, 36, 52), 200, 16, [0, 16, 3, 40, 9, 17, 1, 0] * 2),
+    "N8192": ((64, 96, 128), 8192, 128, [129, 0, 300, 64, 7, 128, 2, 500] * 4),
+    "odd": ((13, 21, 37), 2048, 32, [0, 40, 31, 32, 5, 1, 33, 64] * 3),
+    "padded": ((128, 196, 256), 2048, 128, [0, 128, 300, 64, 127, 129, 1, 200] * 2),
+}
+
+
+@pytest.mark.parametrize("case", list(BALL_CASES))
+def test_msg_ball_kernel_layouts_match_plain(cuda, case):
+    """K4 and K6 against the plain version at atol 1e-4 (3xTF32 products
+    summed in another order than cuBLAS's f32), equal to each other, and
+    bitwise equal on a second launch."""
+    widths, N, k, counts = BALL_CASES[case]
+    radius = 0.2
+    rng = np.random.RandomState(len(case) + N)
+    xyz, new_xyz, folded = _ball_counts_case(rng, counts, widths, cuda, N, radius)
+    sel = tg.ball_selection_mask(xyz, new_xyz, radius, k)
+    want = torch.tensor([min(c, k) or 1 for c in counts], device=cuda)
+    assert torch.equal(sel.sum(-1).long(), want.expand(2, -1).long())
+    ref = tg.dense_msg_scale_plain(xyz, new_xyz, folded, radius, k)
+    got = tg.fused_msg_scale(xyz, new_xyz, folded, radius, k, sb=1, nb=8)
+    again = tg.dense_msg_scale(xyz, new_xyz, folded, radius, k, sb=1, nb=8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+    assert torch.equal(got, again)
+    assert torch.equal(got, tg.fused_msg_scale(xyz, new_xyz, folded, radius, k, sb=1, nb=8))
+
+
+@pytest.mark.parametrize("case", ["across_tiles", "S37", "padded"])
+def test_msg_ball_kernel_tiles_agree(cuda, case):
+    """Every tile of centroids a CTA (1 to 32) gives the same bits: a row's
+    chain does not depend on the rows packed beside it, and the max is
+    exact."""
+    widths, N, k, counts = BALL_CASES[case]
+    rng = np.random.RandomState(3)
+    xyz, new_xyz, folded = _ball_counts_case(rng, counts, widths, cuda, N)
+    outs = [tg._launch_ball("ball", xyz, new_xyz, folded, 0.2, k, tile=t)
+            for t in (1, 4, 8, 16, 32)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    torch.testing.assert_close(
+        outs[0], tg.dense_msg_scale_plain(xyz, new_xyz, folded, 0.2, k), atol=1e-4, rtol=0)
+
+
 def test_msg_dense_wrappers_reject_what_they_cannot_take(cuda):
     rng = np.random.RandomState(1)
     xyz, new_xyz, folded = _dense_case(rng, (8, 8, 16), cuda, B=1, S=8, N=512)
