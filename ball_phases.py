@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Cycles a CTA of the ball kernel (csrc/msg_ball.cu) by phase, on the card.
+"""Cycles a CTA of csrc/msg_ball.cu by phase, both modes, on the card.
 
     python3 ball_phases.py
 
 Builds the kernel's source with -DMSG_BALL_PHASES, which turns on the
-clock64() counters at its PHASE marks (into build/), runs it once at
-chip_smoke.py phase 4c's inputs (B=16, N=2048, seeded weights, request 0's
-ERPC cloud) on sa1's three scales and a regressor head's two, at the
-centroids a CTA that the wrappers choose, checks its output bitwise against
-the wrappers' launch, and prints for each scale thread 0's cycles a CTA in
-each phase, summed over the CTA's row tiles: the set-up (copies issued,
-weights loaded), the walk, the packing, the wait at each row tile's start
-(the gather and the slowest warp of the previous tile), the z pass, layer
-1, its epilogue with the next row tile's gather issued, layer 2, its
-epilogue (the max) and the output. Barrier waits fall in the phase that ends at the barrier.
-Needs a CUDA device and nvcc.
+clock64() counters at its PHASE marks (into build/), runs it once in each
+mode at chip_smoke.py phase 4c's inputs (B=16, N=2048, seeded weights,
+request 0's ERPC cloud) on sa1's three scales and a regressor head's two,
+at the centroids a CTA that the wrappers choose: the ball mode, and the
+mask mode on dense_selection_mask's mask. It checks each output bitwise
+against the wrappers' launch and prints for each scale and mode thread 0's
+cycles a CTA in each phase, summed over the CTA's row tiles (and over the
+mask mode's passes): the set-up (copies issued, weights loaded), the walk
+(in the mask mode the read of the mask rows), the packing, the wait at
+each row tile's start (the gather and the slowest warp of the previous
+tile), the z pass, layer 1, its epilogue with the next row tile's gather
+issued, layer 2, its epilogue (the max) and the output. Barrier waits fall
+in the phase that ends at the barrier. Needs a CUDA device and nvcc.
 """
 
 import ctypes
@@ -44,7 +46,7 @@ def main() -> int:
     from ev2hands_tpu_torch.ops import _build
     from ev2hands_tpu_torch.ops import fps as kfps
     from ev2hands_tpu_torch.ops import grouping as kgrp
-    from ev2hands_tpu_torch.ops.pointnet import index_points
+    from ev2hands_tpu_torch.ops.pointnet import index_points, square_distance
     from ev2hands_tpu_torch.weights import init_weights
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
@@ -57,6 +59,8 @@ def main() -> int:
     lib.msg_ball_launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p])
+    lib.msg_ball_mask_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                                         + [ctypes.c_void_p])
     lib.msg_ball_phases.argtypes = [ctypes.c_void_p]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -83,29 +87,42 @@ def main() -> int:
         for name, sa, pts in (("sa1", net.sa1, events), ("heads sa1", heads, feats)):
             new_xyz = index_points(l0, kfps.fps(l0, sa.npoint)).contiguous()
             S = new_xyz.shape[1]
+            sq = square_distance(new_xyz, l0)
+            stream = torch.cuda.current_stream().cuda_stream
             for i, (r, k) in enumerate(zip(sa.radius_list, sa.nsample_list)):
                 f = sa.folded_scale(i, l0, pts, new_xyz)
                 widths = (*f.W2.shape, f.W3.shape[1])
-                out = torch.empty((B, S, widths[2]), device=dev)
-                ops = [t.contiguous() for t in (l0, new_xyz, *f)]
-                err = lib.msg_ball_launch(*(t.data_ptr() for t in ops), out.data_ptr(), B, S,
-                                          N, *widths, r * r, k, 0,
-                                          torch.cuda.current_stream().cuda_stream)
-                torch.cuda.synchronize()
-                if err != 0:
-                    raise RuntimeError(f"launch failed: CUDA error {err}")
-                if not torch.equal(out, kgrp.fused_msg_scale(l0, new_xyz, f, r, k)):
-                    raise AssertionError("the instrumented kernel differs from the kernel")
-                counts = (ctypes.c_ulonglong * 16)()
-                lib.msg_ball_phases(counts)
-                ctas = counts[10]
-                plan = kgrp.ball_plan(widths, B, S, N, k)
-                total = sum(counts[j] for j in range(10)) / ctas
-                route = "streamed" if plan["streamed"] else "resident"
-                print(f"{name} scale {i} {widths} r={r} K={k}: {ctas} CTAs of "
-                      f"{plan['tile']} centroids, {route} weights, cycles a CTA {total:.0f}: " + ", ".join(
-                          f"{PHASES[j]} {counts[j] / ctas:.0f} "
-                          f"({100 * counts[j] / ctas / total:.1f}%)" for j in range(10)))
+                folded = [t.contiguous() for t in f]
+                sel = kgrp.dense_selection_mask(sq, r, k).contiguous()
+                modes = (
+                    ("ball", k, lambda out: lib.msg_ball_launch(
+                        *(t.data_ptr() for t in (l0, new_xyz, *folded)), out.data_ptr(),
+                        B, S, N, *widths, r * r, k, 0, stream),
+                     lambda: kgrp.fused_msg_scale(l0, new_xyz, f, r, k)),
+                    ("mask", 0, lambda out: lib.msg_ball_mask_launch(
+                        *(t.data_ptr() for t in (sel, *folded)), out.data_ptr(),
+                        B, S, N, *widths, 0, stream),
+                     lambda: kgrp.dense_msg_scale_2d(f, sel)),
+                )
+                for mode, nsample, run, wrapper in modes:
+                    out = torch.empty((B, S, widths[2]), device=dev)
+                    err = run(out)
+                    torch.cuda.synchronize()
+                    if err != 0:
+                        raise RuntimeError(f"launch failed: CUDA error {err}")
+                    if not torch.equal(out, wrapper()):
+                        raise AssertionError("the instrumented kernel differs from the kernel")
+                    counts = (ctypes.c_ulonglong * 16)()
+                    lib.msg_ball_phases(counts)
+                    ctas = counts[10]
+                    plan = kgrp.ball_plan(widths, B, S, N, nsample)
+                    total = sum(counts[j] for j in range(10)) / ctas
+                    route = "streamed" if plan["streamed"] else "resident"
+                    print(f"{name} scale {i} {widths} r={r} K={k}, {mode} mode: {ctas} CTAs "
+                          f"of {plan['tile']} centroids, {route} weights, cycles a CTA "
+                          f"{total:.0f}: " + ", ".join(
+                              f"{PHASES[j]} {counts[j] / ctas:.0f} "
+                              f"({100 * counts[j] / ctas / total:.1f}%)" for j in range(10)))
     return 0
 
 

@@ -7,10 +7,10 @@ Phases (any failed check raises, so the script exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the port from ev2hands_tpu_torch/csrc with nvcc
      for sm_90a, one process per source, timed, and print each kernel
-     function's registers, stack frame and spill bytes from ptxas, and the
-     tensor-core MMA instructions in the ball kernel's SASS (cuobjdump;
-     none fails); then the host batch loader (csrc/ev2hands_loader.cpp)
-     with g++;
+     function's registers, stack frame and spill bytes from ptxas (a spill
+     in csrc/msg_ball.cu, either mode, fails), and the tensor-core MMA
+     instructions in csrc/msg_ball.cu's SASS (cuobjdump; none fails); then
+     the host batch loader (csrc/ev2hands_loader.cpp) with g++;
   3. the FPS kernel against its plain version on ERPC clouds at its three
      shapes (2048->512, 512->128, 2048->128) at the serving batch (B=16),
      the training batch (B=8, random starts) and the evaluation batch
@@ -31,24 +31,25 @@ Phases (any failed check raises, so the script exits non-zero):
      (stacked scales, union tile activity): max abs diff <= 1e-4 against its
      plain version, and its difference from phase 4's three sections;
      prints the union activity and each scale's selected pairs;
- 4c. the dense grouping ops (the mask kernel of csrc/msg_dense.cu, the
-     ball kernel of csrc/msg_ball.cu; no model path runs them) on the same
+ 4c. the dense grouping ops (csrc/msg_ball.cu, one tensor-core chain behind
+     its mask mode and its ball mode; no model path runs them) on the same
      sa1 inputs, each scale folded in original point order: each of the
      four wrappers once a scale, counted (3 launches each), within 1e-4 of
      its plain version; the mask ops (dense_msg_scale_2d,
-     dense_msg_scale_2d_batched) within 1e-4 of phase 4's K2 output (and
-     whether they are bitwise equal to it: one chain on the same rows), the
-     in-kernel-selection ops (fused_msg_scale, dense_msg_scale) within 1e-4
-     of the mask op on every (b, s) whose selection equals
-     dense_selection_mask's (the others are counted and printed), and
-     bitwise equal to each other; each timed with its plain version and
-     its bound (the mask kernel's at the f32 rate; the ball kernel's at the
-     tensor cores' rate, three TF32 products for each f32 product, with the
-     f32 bound beside it); the ball kernel timed at 4, 8, 16 and
-     32 centroids a CTA; then dense_msg_scale_2d and fused_msg_scale at the
-     regressor heads' two sa1 scales beside the model's dense route
-     (_dense_scale) on the same inputs, fused_msg_scale within 1e-4 of its
-     plain version, with the selected pairs, both bounds and the sweep;
+     dense_msg_scale_2d_batched, the mask mode) within 1e-4 of phase 4's
+     K2 output (an f32 FMA chain: not bitwise) and bitwise equal to each
+     other; the in-kernel-selection ops (fused_msg_scale, dense_msg_scale,
+     the ball mode) bitwise equal to the mask ops on every (b, s) whose
+     selection equals dense_selection_mask's (the others are counted and
+     printed), and to each other; each timed with its plain version and its
+     bound at the tensor cores' rate (three TF32 products for each f32
+     product), with the f32 bound beside it; each mode timed at 4, 8, 16
+     and 32 centroids a CTA, every tile the same bits; then
+     dense_msg_scale_2d and fused_msg_scale at the regressor heads' two
+     sa1 scales beside the model's dense route (_dense_scale) on the same
+     inputs, each within 1e-4 of its plain version, the mask mode bitwise
+     the ball mode where the selections agree, with the selected pairs,
+     both bounds and the sweep;
   5. serving: InferencePipeline at full TEHNet width (B=16, N=2048, seeded
      weights, synthetic MANO) answers 4 requests with exactly 3 FPS and 3
      grouping launches per request and finite outputs; then 2 windows of one
@@ -272,8 +273,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
-# the ball kernel (csrc/msg_ball.cu): TF32 products for each f32 product
-# (the 3xTF32 split), and the centroids a CTA that phase 4c sweeps
+# csrc/msg_ball.cu (both modes): TF32 products for each f32 product (the
+# 3xTF32 split), and the centroids a CTA that phase 4c sweeps
 BALL_SPLIT = 3
 BALL_TILES = (4, 8, 16, 32)
 B, N = 16, 2048
@@ -292,8 +293,8 @@ EVAL_PER_BATCH = {"fps": 3, "msg_sparse": 3}
 # the one-hot gathers of a training step, in call order
 GATHER_LAYERS = ("sa1", "sa2", "left regressor sa1", "right regressor sa1")
 # the dense grouping ops: wrapper, the JAX function it ports, takes a mask
-# (the mask kernel of csrc/msg_dense.cu) or selects in the kernel (the ball
-# kernel of csrc/msg_ball.cu)
+# (the mask mode of csrc/msg_ball.cu) or selects in the kernel (its ball
+# mode)
 DENSE_OPS = (
     ("dense_msg_scale", "ev2hands_tpu/ops/pallas_grouping.py:203", False),
     ("dense_msg_scale_2d", "ev2hands_tpu/ops/pallas_grouping.py:304", True),
@@ -357,7 +358,7 @@ def demangle(names, nvcc):
 def ptxas_report(build_logs, nvcc):
     """One line per kernel function of each source built in this run: its
     name (each template instance apart), registers, stack frame and spill
-    bytes from ptxas' report."""
+    bytes from ptxas' report -> [(source, name, spill bytes)]."""
     rows = []
     for source, text in sorted(build_logs.items()):
         fn, frame = None, ""
@@ -372,17 +373,40 @@ def ptxas_report(build_logs, nvcc):
                 rows.append((source, fn, regs.group(1) if regs else "?", frame))
                 fn, frame = None, ""
     names = demangle([r[1] for r in rows], nvcc) if rows else []
+    spills = []
     for (source, _, regs, frame), name in zip(rows, names):
         log(f"  ptxas {source} {name}: {regs} registers, {frame}")
+        spills.append((source, name, sum(
+            int(n) for n in re.findall(r"(\d+) bytes spill", frame))))
+    return spills
 
 
 def sass_mma_count(lib_path, nvcc):
-    """Tensor-core MMA instructions (HMMA, HGMMA) in the SASS of a built
-    library, from the toolkit's cuobjdump beside ``nvcc``."""
+    """(tensor-core MMA instructions (HMMA, HGMMA) in the SASS of a built
+    library, {kernel function: the instructions of each loop that holds an
+    MMA}), from the toolkit's cuobjdump beside ``nvcc``. A loop's length
+    shows what ptxas put beside its MMAs (csrc/msg_ball.cu: the 3xTF32
+    split once a k-step, or again for each output tile)."""
     out = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
                           lib_path], capture_output=True, text=True, check=True,
                          timeout=120).stdout
-    return sum(1 for line in out.splitlines() if re.search(r"\bHG?MMA\.", line))
+    loops = {}
+    for text in re.split(r"\n\s*Function : ", out)[1:]:
+        ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", text)]
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        sizes = set()
+        backs = [i for i, (a, op) in enumerate(ins)
+                 if (m := re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op))
+                 and int(m.group(1), 16) < a]
+        for i in backs:   # innermost loops that hold an MMA
+            start = at.get(int(re.search(r"0x([0-9a-f]+)", ins[i][1]).group(1), 16), i)
+            if (not any(start <= j < i for j in backs)
+                    and any(re.search(r"\bHG?MMA\.", o) for _, o in ins[start:i])):
+                sizes.add(i + 1 - start)
+        if sizes:
+            loops[text.split("\n", 1)[0].strip()] = sorted(sizes)
+    return sum(1 for line in out.splitlines() if re.search(r"\bHG?MMA\.", line)), loops
 
 
 def cuda_ms(torch, fn, iters, warmup=2):
@@ -674,20 +698,21 @@ def dense_ops_phase(torch, kgrp, sa1, l0, events, new_xyz, sq, k2_outs):
             f"{same.numel()} (b, s) pairs")
         C1, C2 = folded.W2.shape
         C3 = folded.W3.shape[1]
+        mask_out = outs["dense_msg_scale_2d"][s]
         for name, _, takes_mask in DENSE_OPS:
             got = outs[name][s]
             err = (got - call(name, s, plain=True)()).abs().max().item()
             if takes_mask:   # the same function as K2 on the same selection
-                versus, vs_err = "K2", (got - k2_outs[s]).abs().max().item()
-                if torch.equal(got, k2_outs[s]):
-                    versus = "K2 (bitwise equal)"
-            else:
+                versus, vs_err, exact = "K2", (got - k2_outs[s]).abs().max().item(), True
+            else:   # the mask mode's rows where the selections agree: its bits
                 versus = "dense_msg_scale_2d where the selections agree"
-                vs_err = torch.where(same[..., None], got - outs["dense_msg_scale_2d"][s],
-                                     0.0).abs().max().item()
-            if not (err <= 1e-4 and vs_err <= 1e-4):
+                vs_err = torch.where(same[..., None], got - mask_out, 0.0).abs().max().item()
+                exact = torch.equal(torch.where(same[..., None], got, 0.0),
+                                    torch.where(same[..., None], mask_out, 0.0))
+            if not (err <= 1e-4 and vs_err <= 1e-4 and exact):
                 raise AssertionError(f"{name} scale {s}: max abs diff {err} from its "
-                                     f"plain version, {vs_err} from {versus}")
+                                     f"plain version, {vs_err} from {versus} "
+                                     f"({'bitwise equal' if exact else 'not bitwise'})")
             n_sel = int((sel if takes_mask else ball).sum().item())
             ops = n_sel * 2 * (C1 * C2 + C2 * C3)
             # every input once: the folded scale, the output, and the mask
@@ -699,41 +724,52 @@ def dense_ops_phase(torch, kgrp, sa1, l0, events, new_xyz, sq, k2_outs):
                        ms=cuda_ms(torch, call(name, s), 20),
                        plain_ms=cuda_ms(torch, call(name, s, plain=True), 3, 1),
                        ops=ops, bytes=nbytes)
-            # the mask kernel runs f32 outside the tensor cores, the ball
-            # kernel on them: each is held to the rate of what it runs
-            row["bound_ms"], row["bound_by"] = (bound if takes_mask else tc_bound)(ops, nbytes)
-            f32 = ""
-            if not takes_mask:
-                row["tc_bound_ms"] = row["bound_ms"]
-                row["f32_bound_ms"] = bound(ops, nbytes)[0]
-                f32 = f", f32 bound {row['f32_bound_ms']:.5f} ms"
+            # both modes run their chain on the tensor cores: each is held
+            # to that rate, the f32 bound beside it
+            row["bound_ms"], row["bound_by"] = tc_bound(ops, nbytes)
+            row["tc_bound_ms"] = row["bound_ms"]
+            row["f32_bound_ms"] = bound(ops, nbytes)[0]
             rows[name].append(row)
             log(f"{name} scale {s} {C1, C2, C3}: {n_sel} selected pairs, max abs "
-                f"diff {err:.3g} from its plain version, {vs_err:.3g} from {versus}; "
+                f"diff {err:.3g} from its plain version, {vs_err:.3g} from {versus}"
+                f"{' (bitwise equal)' if not takes_mask else ''}; "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
-                f"{row['bound_ms']:.5f} ms ({row['bound_by']}){f32}")
-        ball = outs["fused_msg_scale"][s]
-        if not torch.equal(ball, outs["dense_msg_scale"][s]):
-            raise AssertionError(f"scale {s}: fused_msg_scale and dense_msg_scale differ")
-        sweep = ball_sweep(torch, kgrp, l0, new_xyz, folded, r, k, ball)
-        for name in ("fused_msg_scale", "dense_msg_scale"):
-            rows[name][-1]["tile_ms"] = sweep
+                f"{row['bound_ms']:.5f} ms ({row['bound_by']}), f32 bound "
+                f"{row['f32_bound_ms']:.5f} ms")
+        for pair in (("fused_msg_scale", "dense_msg_scale"),
+                     ("dense_msg_scale_2d", "dense_msg_scale_2d_batched")):
+            if not torch.equal(outs[pair[0]][s], outs[pair[1]][s]):
+                raise AssertionError(f"scale {s}: {pair[0]} and {pair[1]} differ")
+        ball_out = outs["fused_msg_scale"][s]
+        sweeps = {
+            False: tile_sweep(torch, kgrp, folded, ball_out, k, lambda t: kgrp._launch_ball(
+                "ball sweep", l0, new_xyz, folded, r, k, tile=t)),
+            True: tile_sweep(torch, kgrp, folded, mask_out, 0, lambda t: kgrp._launch_mask(
+                "mask sweep", folded, sel, tile=t)),
+        }
+        for name, _, takes_mask in DENSE_OPS:
+            rows[name][-1]["tile_ms"] = sweeps[takes_mask]
     return rows, launches
 
 
 def heads_dense_timing(torch, kgrp, sa, l0, feats, new_xyz):
-    """Phase 4c, end: dense_msg_scale_2d and fused_msg_scale at a regressor
-    head's sa1 scales beside the model's dense route on the same inputs,
-    ``feats`` standing in for the attention features (measurements only:
-    the heads' path stays on the dense route); fused_msg_scale within 1e-4
-    of its plain version -> a row a scale (pairs, times, bounds)."""
+    """Phase 4c, end: the two modes of csrc/msg_ball.cu, fused_msg_scale
+    (ball) and dense_msg_scale_2d (mask, on dense_selection_mask's mask), at
+    a regressor head's sa1 scales beside the model's dense route on the
+    same inputs, ``feats`` standing in for the attention features
+    (measurements only: the heads' path stays on the dense route); each
+    within 1e-4 of its plain version, the mask mode bitwise equal to the
+    ball mode where the selections agree, each swept over BALL_TILES ->
+    rows by wrapper name, one a scale (pairs, times, bounds)."""
     from ev2hands_tpu_torch.ops.pointnet import square_distance
 
     sq = square_distance(new_xyz, l0)
-    rows = []
+    rows = {"fused_msg_scale": [], "dense_msg_scale_2d": []}
     for i, (r, k) in enumerate(zip(sa.radius_list, sa.nsample_list)):
         folded = sa.folded_scale(i, l0, feats, new_xyz)
         sel = kgrp.dense_selection_mask(sq, r, k)
+        ball = kgrp.ball_selection_mask(l0, new_xyz, r, k)
+        same = ~(ball != sel).any(dim=-1)                      # [B, S]
         runs = {
             "dense_msg_scale_2d": lambda: kgrp.dense_msg_scale_2d(folded, sel),
             "fused_msg_scale": lambda: kgrp.fused_msg_scale(l0, new_xyz, folded, r, k),
@@ -741,36 +777,53 @@ def heads_dense_timing(torch, kgrp, sa, l0, feats, new_xyz):
         }
         outs = {name: fn() for name, fn in runs.items()}
         diffs = {name: (outs[name] - outs["_dense_scale"]).abs().max().item()
-                 for name in ("dense_msg_scale_2d", "fused_msg_scale")}
-        err = (outs["fused_msg_scale"] - kgrp.dense_msg_scale_plain(
-            l0, new_xyz, folded, r, k)).abs().max().item()
-        if not err <= 1e-4:
-            raise AssertionError(f"heads sa1 scale {i}: fused_msg_scale max abs diff "
-                                 f"{err} from its plain version")
+                 for name in rows}
+        errs = {
+            "fused_msg_scale": (outs["fused_msg_scale"] - kgrp.dense_msg_scale_plain(
+                l0, new_xyz, folded, r, k)).abs().max().item(),
+            "dense_msg_scale_2d": (outs["dense_msg_scale_2d"] - kgrp.dense_msg_scale_2d_plain(
+                folded, sel)).abs().max().item(),
+        }
+        for name, err in errs.items():
+            if not err <= 1e-4:
+                raise AssertionError(f"heads sa1 scale {i}: {name} max abs diff {err} "
+                                     f"from its plain version")
+        if not torch.equal(torch.where(same[..., None], outs["dense_msg_scale_2d"], 0.0),
+                           torch.where(same[..., None], outs["fused_msg_scale"], 0.0)):
+            raise AssertionError(f"heads sa1 scale {i}: the mask mode is not the ball "
+                                 f"mode's bits where the selections agree")
         ms = {name: cuda_ms(torch, fn, 3 if name == "_dense_scale" else 20, 1)
               for name, fn in runs.items()}
         C1, C2 = folded.W2.shape
         C3 = folded.W3.shape[1]
-        pairs = int(kgrp.ball_selection_mask(l0, new_xyz, r, k).sum().item())
-        ops = pairs * 2 * (C1 * C2 + C2 * C3)
-        nbytes = 4 * sum(t.numel() for t in (*folded, outs["fused_msg_scale"], l0, new_xyz))
-        row = dict(scale=i, widths=[C1, C2, C3], radius=r, nsample=k,
-                   S=new_xyz.shape[1], selected_pairs=pairs, max_abs_err=err,
-                   ms=ms["fused_msg_scale"], mask_ms=ms["dense_msg_scale_2d"],
-                   dense_scale_ms=ms["_dense_scale"], ops=ops, bytes=nbytes,
-                   f32_bound_ms=bound(ops, nbytes)[0])
-        row["bound_ms"], row["bound_by"] = tc_bound(ops, nbytes)
-        row["tc_bound_ms"] = row["bound_ms"]
         log(f"heads sa1 scale {i} {C1, C2, C3} r={r} K={k} S={new_xyz.shape[1]}: "
-            f"{pairs} selected pairs; " + ", ".join(
-                f"{name} {t:.4f} ms" for name, t in ms.items())
-            + f"; bound (tensor cores) {row['bound_ms']:.5f} ms ({row['bound_by']}), "
-            f"f32 bound {row['f32_bound_ms']:.5f} ms; fused_msg_scale max abs diff "
-            f"{err:.3g} from its plain version; max abs diff from _dense_scale "
-            + ", ".join(f"{name} {d:.3g}" for name, d in diffs.items()))
-        row["tile_ms"] = ball_sweep(torch, kgrp, l0, new_xyz, folded, r, k,
-                                    outs["fused_msg_scale"])
-        rows.append(row)
+            f"the selections differ on {int((~same).sum().item())} of {same.numel()} "
+            f"(b, s) pairs, the mask mode the ball mode's bits on the others; "
+            + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
+            + "; max abs diff from the plain version " + ", ".join(
+                f"{name} {e:.3g}" for name, e in errs.items())
+            + "; from _dense_scale " + ", ".join(
+                f"{name} {d:.3g}" for name, d in diffs.items()))
+        modes = (("fused_msg_scale", ball, (l0, new_xyz), k,
+                  lambda t: kgrp._launch_ball("ball sweep", l0, new_xyz, folded, r, k,
+                                              tile=t)),
+                 ("dense_msg_scale_2d", sel, (sel,), 0,
+                  lambda t: kgrp._launch_mask("mask sweep", folded, sel, tile=t)))
+        for name, picked, reads, nsample, launch in modes:
+            pairs = int(picked.sum().item())
+            ops = pairs * 2 * (C1 * C2 + C2 * C3)
+            nbytes = 4 * sum(t.numel() for t in (*folded, outs[name], *reads))
+            row = dict(scale=i, widths=[C1, C2, C3], radius=r, nsample=k,
+                       S=new_xyz.shape[1], selected_pairs=pairs, max_abs_err=errs[name],
+                       ms=ms[name], dense_scale_ms=ms["_dense_scale"], ops=ops,
+                       bytes=nbytes, f32_bound_ms=bound(ops, nbytes)[0])
+            row["bound_ms"], row["bound_by"] = tc_bound(ops, nbytes)
+            row["tc_bound_ms"] = row["bound_ms"]
+            log(f"  {name}: {pairs} selected pairs; bound (tensor cores) "
+                f"{row['bound_ms']:.5f} ms ({row['bound_by']}), f32 bound "
+                f"{row['f32_bound_ms']:.5f} ms")
+            row["tile_ms"] = tile_sweep(torch, kgrp, folded, outs[name], nsample, launch)
+            rows[name].append(row)
     return rows
 
 
@@ -782,34 +835,35 @@ def bound(ops, nbytes):
 
 
 def tc_bound(ops, nbytes):
-    """(least ms, what bounds it) for the ball kernel: its ``ops`` f32
+    """(least ms, what bounds it) for csrc/msg_ball.cu: its ``ops`` f32
     operations as BALL_SPLIT TF32 products each at the dense TF32 peak, or
     ``nbytes`` at the HBM rate, whichever is longer."""
     t_ops, t_bytes = BALL_SPLIT * ops / TF32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
-def ball_sweep(torch, kgrp, xyz, new_xyz, folded, r, k, want):
-    """The ball kernel at each of BALL_TILES centroids a CTA -> ms by tile;
-    every tile's output must be ``want``'s bits (a row's chain does not
-    depend on the rows packed beside it; the max is exact)."""
+def tile_sweep(torch, kgrp, folded, want, nsample, launch):
+    """csrc/msg_ball.cu at each of BALL_TILES centroids a CTA, ``launch(t)``
+    running its ball mode (``nsample``) or its mask mode (``nsample`` 0) on
+    ``folded`` -> ms by tile; every tile's output must be ``want``'s bits (a
+    row's chain does not depend on the rows packed beside it; the max is
+    exact)."""
     widths = (*folded.W2.shape, folded.W3.shape[1])
+    B, N = folded.u.shape[:2]
+    S = folded.v.shape[1]
     tile_ms, plans = {}, []
     for t in BALL_TILES:
-        def run(t=t):
-            return kgrp._launch_ball("ball sweep", xyz, new_xyz, folded, r, k, tile=t)
-
-        if not torch.equal(run(), want):
-            raise AssertionError(f"ball kernel at tile {t}: not the bits of the "
+        if not torch.equal(launch(t), want):
+            raise AssertionError(f"msg_ball.cu at tile {t}: not the bits of the "
                                  f"wrappers' launch")
-        tile_ms[t] = cuda_ms(torch, run, 20)
-        plan = kgrp.ball_plan(widths, *new_xyz.shape[:2], xyz.shape[1], k, t)
+        tile_ms[t] = cuda_ms(torch, lambda t=t: launch(t), 20)
+        plan = kgrp.ball_plan(widths, B, S, N, nsample, t)
         plans.append(f"{t}: {tile_ms[t]:.4f} ms ({plan['tile']} a CTA, "
                      f"{'streamed' if plan['streamed'] else 'resident'} weights, "
-                     f"{plan['smem_bytes']} B)")
-    chosen = kgrp.ball_plan(widths, *new_xyz.shape[:2], xyz.shape[1], k)
-    log(f"  ball kernel by centroids a CTA (the wrappers' choice {chosen['tile']}): "
-        + "; ".join(plans))
+                     f"{plan['capacity']} rows a centroid, {plan['smem_bytes']} B)")
+    chosen = kgrp.ball_plan(widths, B, S, N, nsample)
+    log(f"  {'mask' if nsample == 0 else 'ball'} mode by centroids a CTA (the wrappers' "
+        f"choice {chosen['tile']}): " + "; ".join(plans))
     return tile_ms
 
 
@@ -3609,9 +3663,15 @@ def main() -> int:
     _build.load_host("ev2hands_loader")
     log(f"build: csrc/ev2hands_loader.cpp (the host batch loader) -> g++ in "
         f"{time.perf_counter() - t0:.1f} s")
-    ptxas_report(_build.build_logs, _build.nvcc_path())
-    n_mma = sass_mma_count(_build._target("msg_ball"), _build.nvcc_path())
+    spilled = [name for source, name, n in ptxas_report(_build.build_logs, _build.nvcc_path())
+               if source == "msg_ball" and n]
+    if spilled:
+        raise AssertionError(f"csrc/msg_ball.cu: spills in {spilled}")
+    n_mma, mma_loops = sass_mma_count(_build._target("msg_ball"), _build.nvcc_path())
     log(f"sass csrc/msg_ball.cu: {n_mma} tensor-core MMA instructions")
+    for (name, sizes), shown in zip(mma_loops.items(),
+                                    demangle(list(mma_loops), _build.nvcc_path())):
+        log(f"  sass {shown}: MMA loops of {sizes} instructions")
     if n_mma == 0:
         raise AssertionError("csrc/msg_ball.cu: no tensor-core MMA instruction in its SASS")
 
@@ -3897,23 +3957,27 @@ def main() -> int:
               "ev2hands_tpu/ops/pallas_gather.py:230",
               [r for r in scatter_rows if r["on_path"]],
               max(r["max_abs_err"] for r in scatter_rows), library=True),
-    ] + [entry(name, "ev2hands_tpu_torch/csrc/"
-               + ("msg_dense.cu" if takes_mask else "msg_ball.cu"), replaces,
-               dense_rows[name], max(r["max_abs_err"] for r in dense_rows[name]))
-         for name, replaces, takes_mask in DENSE_OPS]
-    # the ball kernel: its bound is the tensor-core one (tc_bound_ms, the
-    # same number); beside it the f32 bound over the same pass, the sweep of
-    # centroids a CTA by scale, and the heads' two scales
+    ] + [entry(name, "ev2hands_tpu_torch/csrc/msg_ball.cu", replaces, dense_rows[name],
+               max(r["max_abs_err"] for r in dense_rows[name]))
+         for name, replaces, _ in DENSE_OPS]
+    # csrc/msg_ball.cu, both modes: the bound is the tensor-core one
+    # (tc_bound_ms, the same number); beside it the f32 bound over the same
+    # pass, the sweep of centroids a CTA by scale, the mode (mask or ball)
+    # and the heads' two scales in that mode
     for kern in kernels:
-        if kern["name"] in ("fused_msg_scale", "dense_msg_scale"):
-            rows = dense_rows[kern["name"]]
-            kern.update(tc_bound_ms=kern["bound_ms"],
+        for name, _, takes_mask in DENSE_OPS:
+            if kern["name"] != name:
+                continue
+            rows = dense_rows[name]
+            heads = heads_rows["dense_msg_scale_2d" if takes_mask else "fused_msg_scale"]
+            kern.update(mode="mask" if takes_mask else "ball",
+                        tc_bound_ms=kern["bound_ms"],
                         f32_bound_ms=sum(r["f32_bound_ms"] for r in rows),
                         tile_ms=[r["tile_ms"] for r in rows],
                         heads=[{key: r[key] for key in (
                             "widths", "S", "selected_pairs", "max_abs_err", "ms",
                             "bound_ms", "bound_by", "f32_bound_ms", "tile_ms")}
-                            for r in heads_rows])
+                            for r in heads])
     # K1's chain floor over the same pass, every shape of phase 3 and the
     # sweep
     kernels[0].update(

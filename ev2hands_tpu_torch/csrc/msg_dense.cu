@@ -1,64 +1,56 @@
-// Multi-scale grouping on Hopper (sm_90a): one MSG scale pooled over the
-// points that each centroid selects, with the selection given as a mask, or
-// given as a mask over Morton-ordered points with a tile-activity map
-// (block-sparse, one launch for all scales of a layer).
+// Block-sparse multi-scale grouping on Hopper (sm_90a): one MSG scale, or
+// all scales of a layer in one launch, pooled over the points that each
+// centroid selects, with the selection given as a mask over Morton-ordered
+// points and a tile-activity map.
 //
-// Replaces four TPU kernels of ev2hands_tpu/ops/pallas_grouping.py, which
-// compute one function in two groups (csrc/msg_ball.cu replaces the two
-// that select in the kernel, fused_msg_scale_pallas and
-// dense_msg_scale_pallas):
-//  * msg_dense_mask_kernel takes the selection as a mask sel [B, S, N] in
-//    original point order (dense_selection_mask, which carries the point-0
-//    fallback): dense_msg_scale_pallas_2d (_kernel_2d) and
-//    dense_msg_scale_pallas_2d_batched (_kernel_2d_batched);
-//  * msg_sparse_kernel takes R scales stacked by stack_folded_scales (u
-//    [B, N, C1t] and v [B, S, C1t] concatenate the scales' first layers, W2
-//    [C1t, C2t] and W3 [C2t, C3t] are block-diagonal), each scale's mask
-//    sel [B, R, S, N] over Morton-ordered points and the union of their
-//    tile activities act [B, S, N / nb]: dense_msg_fused_scales_pallas_sparse
-//    (_kernel_2d_sparse_fused), and with R = 1
-//    dense_msg_scale_pallas_sparse (_kernel_2d_sparse).
-// For each (b, s) (and scale r of the sparse kernel's output section) all
-// pool
+// Replaces two TPU kernels of ev2hands_tpu/ops/pallas_grouping.py:
+// dense_msg_fused_scales_pallas_sparse (_kernel_2d_sparse_fused) and, with
+// R = 1, dense_msg_scale_pallas_sparse (_kernel_2d_sparse). The other four
+// grouping kernels there, which select in the kernel from a ball
+// (fused_msg_scale_pallas, dense_msg_scale_pallas) or take a mask in
+// original point order (dense_msg_scale_pallas_2d,
+// dense_msg_scale_pallas_2d_batched), live in csrc/msg_ball.cu, its ball
+// and mask modes. msg_sparse_kernel takes R scales stacked by
+// stack_folded_scales (u [B, N, C1t] and v [B, S, C1t] concatenate the
+// scales' first layers, W2 [C1t, C2t] and W3 [C2t, C3t] are
+// block-diagonal), each scale's mask sel [B, R, S, N] over Morton-ordered
+// points and the union of their tile activities act [B, S, N / nb]. For
+// each (b, s) and scale r of the output's sections it pools
 //   out[b, s, c] = max over the selected points n of
 //                  relu(relu(relu(u[b, n] - v[b, s]) @ W2 + b2) @ W3 + b3)[c]
-// over u [B, N, C1], v [B, S, C1], W2 [C1, C2], W3 [C2, C3], and the mask
-// kernels leave -1e30 where the mask selects nothing, as the TPU kernels do
-// (their masked rows contribute h - 1e30 == -1e30 in f32). The sparse
-// kernel reads a scale's mask only on union-active tiles and runs the
-// scale's own chain (its diagonal blocks): the off-diagonal zeros would add
-// exact +0.0 terms, and a row that scale r does not select never reaches
-// section r, so the values are the same with no wasted work.
+// over u [B, N, C1], v [B, S, C1], W2 [C1, C2], W3 [C2, C3], and leaves
+// -1e30 where the mask selects nothing, as the TPU kernels do (their masked
+// rows contribute h - 1e30 == -1e30 in f32). It reads a scale's mask only on
+// union-active tiles and runs the scale's own chain (its diagonal blocks):
+// the off-diagonal zeros would add exact +0.0 terms, and a row that scale r
+// does not select never reaches section r, so the values are the same with
+// no wasted work.
 //
 // What bounds it on this card: the work is 2 * (C1 * C2 + C2 * C3) flops for
-// each selected pair; the bytes are u, v, the weights, the output and either
-// the [B, S, N] f32 mask (the sparse kernel: R mask slices of nb floats for
-// each union-active tile). At sa1's and the regressor heads' shapes the f32
-// operations bound it, except the narrowest sa1 scale on its own, which its
-// bytes bound.
+// each selected pair; the bytes are u, v, the weights, the output and R mask
+// slices of nb floats for each union-active tile. At sa1's and the regressor
+// heads' shapes the f32 operations bound it, except the narrowest sa1 scale
+// on its own, which its bytes bound.
 //
-// Design (simple first; no tensor cores or TMA yet). The TPU kernels ran
-// the chain over all N points of a centroid and masked the max. Here a CTA
-// of 256 threads takes one (b, s), or the sparse kernel's kCentroids of
-// them: it compacts the selected point indices into a shared list (the mask
-// kernel from its mask row, any number of them; the sparse kernel from its
-// scale's mask row on the union-active tiles only),
-// then runs one chain (pool_rows) over the list only, 32 rows at a time, so
-// it does the selected pairs' work and no more. Widths up to C1 = 128,
-// C2 = 256, C3 = 256 in any combination (TEHNet's widest MSG scale is
-// (128, 196, 256)): their weights (up to 384 KB in f32; sa1's stacked ones
-// 368 KB) do not fit in shared memory, so they are read through the L1/L2
-// caches, and each thread carries 8 rows of one output column through a
-// layer so that a weight it reads serves 8 rows. The tiles of the chain lie
-// transposed in shared memory ([channel][row]) so those 8 rows come as two
-// float4 loads. The max over rows folds into shared memory with an integer
+// Design (simple first; no tensor cores or TMA). The TPU kernels ran the
+// chain over all N points of a centroid and masked the max. Here a CTA of
+// 256 threads takes kCentroids centroids of one scale, one after another:
+// it compacts the points that the scale's mask row selects on the
+// union-active tiles into a shared list, then runs one chain (pool_rows)
+// over the list only, 32 rows at a time, so it does the selected pairs'
+// work and no more. Widths up to C1 = 128, C2 = 256, C3 = 256 in any
+// combination (TEHNet's widest MSG scale is (128, 196, 256)): their weights
+// (up to 384 KB in f32; sa1's stacked ones 368 KB) do not fit in shared
+// memory, so they are read through the L1/L2 caches, and each thread
+// carries 8 rows of one output column through a layer so that a weight it
+// reads serves 8 rows. The tiles of the chain lie transposed in shared
+// memory ([channel][row]) so those 8 rows come as two float4 loads. Each
+// output accumulates in f32 FMAs over the input channels ascending from
+// 0.0f. The max over rows folds into shared memory with an integer
 // atomicMax on the float bits, exact because every value is a relu output
-// (>= +0.0) or the -1e30 it starts from. The sparse kernel's grid is
-// (centroid block, b, scale), widest scale first; each CTA's shared memory
-// is its two tiles, v, the running max and the list, so several fit on an
-// SM. Both paths accumulate each output in the same f32 order (FMA over
-// the input channels ascending from 0.0f), so the two kernels agree bitwise
-// on the same selected rows.
+// (>= +0.0) or the -1e30 it starts from. The grid is (centroid block, b,
+// scale), widest scale first; each CTA's shared memory is its two tiles,
+// v, the running max and the list, so several fit on an SM.
 
 #include <cuda_runtime.h>
 
@@ -78,12 +70,6 @@ constexpr int kCentroids = 2;
 
 bool widths_ok(int c1, int c2, int c3) {
   return c1 > 0 && c1 <= kMaxC1 && c2 > 0 && c2 <= kMaxC2 && c3 > 0 && c3 <= kMaxC3;
-}
-
-// Bytes of dynamic shared memory: the transposed tiles, v, the running max
-// and a list of `list` point indices.
-size_t smem_bytes(int c1, int c2, int c3, int list) {
-  return (static_cast<size_t>(kLd) * (c1 + c2) + c1 + c3 + list) * 4;
 }
 
 struct Shared {
@@ -196,29 +182,6 @@ __device__ void pool_rows(const Shared& sh, int nsel, const float* __restrict__ 
   for (int c = threadIdx.x; c < c3; c += kThreads) out_bs[c] = __int_as_float(sh.mx[c]);
 }
 
-__global__ void __launch_bounds__(kThreads)
-msg_dense_mask_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                      const float* __restrict__ sel, const float* __restrict__ W2,
-                      const float* __restrict__ b2, const float* __restrict__ W3,
-                      const float* __restrict__ b3, float* __restrict__ out, int S,
-                      int N, int c1, int c2, int c3) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int nrows;
-  const Shared sh = carve(smem, c1, c2, c3);
-  const int b = blockIdx.y;
-  const size_t bs = static_cast<size_t>(b) * S + blockIdx.x;
-  if (threadIdx.x == 0) nrows = 0;
-  start_centroid(sh, v + bs * c1, c1, c3);
-  __syncthreads();
-  const float* sel_row = sel + bs * N;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    if (sel_row[n] > 0.5f) sh.rows[atomicAdd(&nrows, 1)] = n;
-  }
-  __syncthreads();
-  pool_rows(sh, nrows, u + static_cast<size_t>(b) * N * c1,
-            Chain{W2, b2, W3, b3, c1, c2, c3, c1, c2, c3}, out + bs * c3);
-}
-
 // The per-scale blocks of the sparse kernel's stacked operands: scale r's
 // widths and its offsets into the stacked channels C1t, C2t, C3t.
 struct Blocks {
@@ -309,32 +272,6 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 }
 
 }  // namespace
-
-// Dynamic shared memory of a mask launch, in bytes, for widths (c1, c2, c3)
-// and a list of `list` point indices (N); 0 when the widths do not fit the
-// kernels.
-extern "C" size_t msg_dense_smem_bytes(int c1, int c2, int c3, int list) {
-  if (!widths_ok(c1, c2, c3) || list < 1) return 0;
-  return smem_bytes(c1, c2, c3, list);
-}
-
-// u [B, N, c1], v [B, S, c1], sel [B, S, N] f32 (0/1), W2 [c1, c2], b2 [c2],
-// W3 [c2, c3], b3 [c3], out [B, S, c3] f32; all contiguous on the current
-// device. Returns the CUDA error of the launch (0 = success).
-extern "C" int msg_dense_mask_launch(const float* u, const float* v, const float* sel,
-                                     const float* W2, const float* b2, const float* W3,
-                                     const float* b3, float* out, int B, int S, int N,
-                                     int c1, int c2, int c3, void* stream) {
-  if (!widths_ok(c1, c2, c3) || B < 1 || S < 1 || N < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = smem_bytes(c1, c2, c3, N);
-  cudaError_t err = prepare(msg_dense_mask_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  msg_dense_mask_kernel<<<dim3(S, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      u, v, sel, W2, b2, W3, b3, out, S, N, c1, c2, c3);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // Dynamic shared memory the sparse kernel needs, in bytes, for R scales
 // whose (C1, C2, C3) widths are widths[3 r .. 3 r + 2], at N points; 0 when

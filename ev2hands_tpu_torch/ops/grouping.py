@@ -43,11 +43,13 @@ wrapper named after its Pallas function:
   ``ball_selection_mask`` does from elementwise f32 distances
   (``dense_msg_scale_plain`` on a CPU tensor).
 
-On a CUDA tensor the first two launch the mask kernel of
-``csrc/msg_dense.cu`` and the last two the ball kernel of
-``csrc/msg_ball.cu``, which runs the chain on tensor cores in the 3xTF32
-split (within 1e-4 of the mask kernel on the same rows, not bitwise). All
-four kernels take the same widths (``_MAX_WIDTHS``).
+On a CUDA tensor all four launch ``csrc/msg_ball.cu``, one chain on
+tensor cores in the 3xTF32 split behind two selection stages: the first
+two its mask mode, which reads the mask (any number of rows a centroid,
+-1e30 where a row selects nothing), the last two its ball mode. On the
+same rows both modes give the same bits, and they agree with the
+block-sparse kernel of ``csrc/msg_dense.cu`` within 1e-4 (an f32 FMA
+chain), not bitwise. Both kernels take the same widths (``_MAX_WIDTHS``).
 """
 
 from __future__ import annotations
@@ -232,11 +234,6 @@ def _lib() -> ctypes.CDLL:
     lib.msg_sparse_launch.restype = ctypes.c_int
     lib.msg_sparse_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ints]
     lib.msg_sparse_smem_bytes.restype = ctypes.c_size_t
-    lib.msg_dense_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.msg_dense_smem_bytes.restype = ctypes.c_size_t
-    lib.msg_dense_mask_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    lib.msg_dense_mask_launch.restype = ctypes.c_int
     return lib
 
 
@@ -249,24 +246,30 @@ def _ball_lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.msg_ball_launch.restype = ctypes.c_int
+    lib.msg_ball_mask_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.msg_ball_mask_launch.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=256)
 def ball_plan(widths: Tuple[int, int, int], B: int, S: int, N: int, nsample: int,
               tile: int = 0) -> Optional[dict]:
-    """The ball kernel's layout for these widths, B x S centroids, N points
-    and nsample: the centroids a CTA (``tile``, at most 32, or for 0 the
-    kernel's choice from B and S, the most that still fill the SMs; fewer
-    where shared memory is short), whether the weights stream
-    through shared memory in panels or stay resident, the points of a walk
-    chunk, the shared memory in bytes and the rows of a row tile; None when
-    it does not fit. Cached: callers do not edit the dict."""
-    info = (ctypes.c_int * 5)()
+    """The layout of ``csrc/msg_ball.cu`` for these widths, B x S centroids,
+    N points and nsample (0: the mask mode): the centroids a CTA (``tile``,
+    at most 32, or for 0 the kernel's choice from B and S, the most that
+    still fill the SMs; fewer where shared memory is short), whether the
+    weights stream through shared memory in panels or stay resident, the
+    points of a walk chunk (0 in the mask mode), the shared memory in bytes,
+    the rows of a row tile and the rows a centroid's segment holds
+    (``capacity``; in the mask mode a pass's, and a centroid that selects
+    more takes several passes); None when it does not fit. Cached: callers
+    do not edit the dict."""
+    info = (ctypes.c_int * 6)()
     if not _ball_lib().msg_ball_plan(*widths, B, S, N, nsample, tile, info):
         return None
     return {"tile": info[0], "streamed": bool(info[1]), "chunk": info[2],
-            "smem_bytes": info[3], "rows": info[4]}
+            "smem_bytes": info[3], "rows": info[4], "capacity": info[5]}
 
 
 # Most scales the block-sparse kernel takes, and the widest (C1, C2, C3) of a
@@ -485,7 +488,7 @@ def _msg_fused_scales_sparse_fake(u, v, W2, b2, W3, b3, sel_all, act, sections,
 def dense_msg_scale_2d_plain(
     folded: FoldedScale, sel: torch.Tensor, chunk: int = 64
 ) -> torch.Tensor:
-    """Plain version of the mask kernel: ``sel`` [B, S, N] (original point
+    """Plain version of the mask mode: ``sel`` [B, S, N] (original point
     order, the fallback already in it) -> [B, S, C3], -1e30 for a row that
     selects nothing."""
     return _pooled_chain(folded, sel > 0.5, chunk)
@@ -495,7 +498,7 @@ def dense_msg_scale_plain(
     xyz: torch.Tensor, new_xyz: torch.Tensor, folded: FoldedScale,
     radius: float, nsample: int, chunk: int = 64,
 ) -> torch.Tensor:
-    """Plain version of the in-kernel-selection kernel -> [B, S, C3]: the
+    """Plain version of the ball mode -> [B, S, C3]: the
     chain pooled over ``ball_selection_mask``, so an empty ball pools point
     0's chain."""
     return _pooled_chain(
@@ -537,19 +540,22 @@ def _dense_operands(name: str, f: FoldedScale, extra: dict):
     return {k: t.contiguous() for k, t in named.items()}
 
 
-def _launch_mask(name: str, f: FoldedScale, sel: torch.Tensor) -> torch.Tensor:
+def _launch_mask(name: str, f: FoldedScale, sel: torch.Tensor,
+                 tile: int = 0) -> torch.Tensor:
+    """The mask mode of ``csrc/msg_ball.cu`` at ``tile`` centroids a CTA
+    (0, the kernel's choice, for the wrappers; chip_smoke.py's sweep sets
+    others)."""
     B, N, C1 = f.u.shape
     S = f.v.shape[1]
     C2, C3 = f.W2.shape[1], f.W3.shape[1]
     t = _dense_operands(name, f, {"sel": (sel, (B, S, N))})
-    lib = _lib()
-    if lib.msg_dense_smem_bytes(C1, C2, C3, N) > _MAX_SMEM:
-        raise ValueError(f"{name}: N={N} does not fit the kernel's shared memory")
+    if ball_plan((C1, C2, C3), B, S, N, 0, tile) is None:
+        raise ValueError(f"{name}: N={N} at tile {tile} does not fit the kernel")
     out = torch.empty((B, S, C3), dtype=torch.float32, device=f.u.device)
     with torch.cuda.device(out.device):
-        err = lib.msg_dense_mask_launch(
-            *(t[k].data_ptr() for k in ("u", "v", "sel", "W2", "b2", "W3", "b3")),
-            out.data_ptr(), B, S, N, C1, C2, C3,
+        err = _ball_lib().msg_ball_mask_launch(
+            *(t[k].data_ptr() for k in ("sel", "u", "v", "W2", "b2", "W3", "b3")),
+            out.data_ptr(), B, S, N, C1, C2, C3, tile,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -559,7 +565,7 @@ def _launch_mask(name: str, f: FoldedScale, sel: torch.Tensor) -> torch.Tensor:
 def _launch_ball(name: str, xyz: torch.Tensor, new_xyz: torch.Tensor,
                  f: FoldedScale, radius: float, nsample: int,
                  tile: int = 0) -> torch.Tensor:
-    """The ball kernel of ``csrc/msg_ball.cu`` at ``tile`` centroids a CTA
+    """The ball mode of ``csrc/msg_ball.cu`` at ``tile`` centroids a CTA
     (0, the kernel's choice, for the wrappers; chip_smoke.py's sweep sets
     others)."""
     B, N, C1 = f.u.shape
@@ -609,7 +615,7 @@ def dense_msg_scale_2d_batched(
     """The same function as ``dense_msg_scale_2d``. Counterpart of
     ``dense_msg_scale_pallas_2d_batched``, which on the TPU gathered a
     block's pairs into one scratch matrix; here it launches the same
-    kernel."""
+    kernel, the mask mode of ``csrc/msg_ball.cu``."""
     _check_blocks("dense_msg_scale_2d_batched", folded.v.shape[1], sb)
     if _on_cpu("dense_msg_scale_2d_batched", folded.u):
         return dense_msg_scale_2d_plain(folded, sel)

@@ -1,6 +1,6 @@
 """The port's dense grouping ops (one MSG scale over every point, original
 point order) against their Pallas functions in interpret mode, on the CPU
-(the plain versions of the ``csrc/msg_dense.cu`` kernels).
+(the plain versions of ``csrc/msg_ball.cu``'s two modes).
 
 Inputs come from numpy seeds and go to both sides, at the shapes of the JAX
 package's own kernel tests (B=2, S=32, N=256, widths (16, 16, 32), r=0.3,
@@ -68,12 +68,22 @@ BALL_OPS = [("fused_msg_scale", jg.fused_msg_scale_pallas, 8, 64),
             ("dense_msg_scale", jg.dense_msg_scale_pallas, 16, 128)]
 
 
+# the edited mask's row that selects nothing and its row that selects every point
+EMPTY, FULL = 5, 9
+
+
+@pytest.mark.parametrize("mask", ["dense", "edited"])
 @pytest.mark.parametrize("name,pallas,sb", MASK_OPS, ids=[o[0] for o in MASK_OPS])
-def test_mask_op_matches_pallas_interpret(case, name, pallas, sb):
+def test_mask_op_matches_pallas_interpret(case, name, pallas, sb, mask):
     """K5 and K7: the mask of ``dense_selection_mask`` (its point-0
-    fallback included) given to both sides."""
+    fallback included) given to both sides; "edited", the same mask with
+    row EMPTY zeroed (-1e30 on both sides) and row FULL set on every point,
+    the two inputs the kernel's mask mode adds logic for (a centroid with
+    no row; one with more rows than a pass holds)."""
     xyz, new_xyz, folded, t_folded = case
     sel = jg.dense_selection_mask(jnp.asarray(xyz), jnp.asarray(new_xyz), R, K)
+    if mask == "edited":
+        sel = sel.at[:, EMPTY].set(0.0).at[:, FULL].set(1.0)
     ref = np.asarray(pallas(folded, sel, sb=sb, interpret=True))
     op = getattr(tg, name)
     launches = op.launches
@@ -81,6 +91,9 @@ def test_mask_op_matches_pallas_interpret(case, name, pallas, sb):
     assert op.launches == launches   # CPU: the plain version
     np.testing.assert_allclose(got, ref, atol=2e-5)
     np.testing.assert_allclose(got[:, FAR], _point0_chain(folded, FAR), atol=2e-5)
+    if mask == "edited":
+        assert (ref[:, EMPTY] == np.float32(-1e30)).all()
+        assert (got[:, EMPTY] == np.float32(-1e30)).all()
     # other centroid chunks give other matmul shapes (BLAS kernels): 1e-6
     np.testing.assert_allclose(
         tg.dense_msg_scale_2d_plain(t_folded, _t(sel), chunk=5).numpy(), got, atol=1e-6)

@@ -377,6 +377,83 @@ def test_msg_dense_mask_kernels_match_plain(cuda, widths, radius, k):
 
 
 @pytest.mark.parametrize("widths,radius,k", DENSE_SCALES, ids=DENSE_IDS)
+def test_msg_dense_mask_kernels_bitwise_the_ball_kernel(cuda, widths, radius, k):
+    """K5 and K7 given ``ball_selection_mask``'s mask: K4's bits. Both are
+    modes of one kernel with one chain, and at these widths the mask mode
+    takes the ball mode's layout (resident or streamed weights, rows of a
+    row tile)."""
+    rng = np.random.RandomState(widths[0] + k)
+    xyz, new_xyz, folded = _dense_case(rng, widths, cuda)
+    B, S, N = folded.v.shape[0], folded.v.shape[1], folded.u.shape[1]
+    mask_plan, ball_plan = tg.ball_plan(widths, B, S, N, 0), tg.ball_plan(widths, B, S, N, k)
+    assert (mask_plan["streamed"], mask_plan["rows"]) == (ball_plan["streamed"],
+                                                          ball_plan["rows"])
+    sel = tg.ball_selection_mask(xyz, new_xyz, radius, k)
+    want = tg.fused_msg_scale(xyz, new_xyz, folded, radius, k)
+    for op in (tg.dense_msg_scale_2d, tg.dense_msg_scale_2d_batched):
+        got = op(folded, sel)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def _overflow_mask(rng, B, S, N, device):
+    """A 0/1 mask whose rows overflow a tile's row list: rows that select
+    all N points and rows of a random 700-1,400 of them (each over a
+    segment's rows at 32 centroids a CTA, so a centroid's rows span several
+    passes), empty rows between them, the rest a random 0-40."""
+    sel = np.zeros((B, S, N), np.float32)
+    for b in range(B):
+        for s in range(S):
+            kind = (s + b) % 7
+            n = (N if kind in (0, 4) else 0 if kind in (2, 5)
+                 else rng.randint(700, 1400) if kind == 3 else rng.randint(0, 41))
+            sel[b, s, rng.choice(N, n, replace=False)] = 1.0
+    return torch.from_numpy(sel).to(device)
+
+
+@pytest.mark.parametrize("widths,radius,k", DENSE_SCALES, ids=DENSE_IDS)
+def test_msg_dense_mask_kernel_overflow_tiles_agree(cuda, widths, radius, k):
+    """Masks whose rows overflow the list (whole rows, empty rows mixed in,
+    rows spanning several passes): within 1e-4 of the plain version (-1e30
+    where a row selects nothing), the same bits at every tile of 4 to 32
+    centroids a CTA, on two launches, and from both wrappers."""
+    rng = np.random.RandomState(widths[1] + widths[2])
+    _, _, folded = _dense_case(rng, widths, cuda)
+    B, S, N = folded.v.shape[0], folded.v.shape[1], folded.u.shape[1]
+    sel = _overflow_mask(rng, B, S, N, cuda)
+    assert tg.ball_plan(widths, B, S, N, 0, 32)["capacity"] < 700
+    ref = tg.dense_msg_scale_2d_plain(folded, sel)
+    outs = [tg._launch_mask("mask", folded, sel, tile=t) for t in (4, 8, 16, 32, 32)]
+    outs += [tg.dense_msg_scale_2d(folded, sel), tg.dense_msg_scale_2d_batched(folded, sel)]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], ref, atol=1e-4, rtol=0)
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    empty = sel.sum(-1) == 0
+    assert empty.any() and (outs[0][empty] == -1e30).all()
+    assert (outs[0][~empty] >= 0).all()
+
+
+@pytest.mark.parametrize("N", [203, 50001])
+def test_msg_dense_mask_kernel_takes_any_n(cuda, N):
+    """N not a multiple of 4 (the mask read a float at a time), and N = 50,001
+    at the widest widths, over the 43,904 that the previous mask kernel's
+    shared memory held (the mask mode's does not grow with N): within 1e-4
+    of the plain version, an empty row -1e30."""
+    rng = np.random.RandomState(N)
+    widths = (128, 256, 256)
+    B, S = 1, 8
+    folded = _folded(rng, B, S, N, widths, cuda)
+    sel = torch.from_numpy((rng.rand(B, S, N) < 0.3).astype(np.float32)).to(cuda)
+    sel[:, 2] = 0.0
+    sel[:, 5] = 1.0
+    got = tg.dense_msg_scale_2d(folded, sel)
+    ref = tg.dense_msg_scale_2d_plain(folded, sel, chunk=1)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+    assert (got[:, 2] == -1e30).all()
+
+
+@pytest.mark.parametrize("widths,radius,k", DENSE_SCALES, ids=DENSE_IDS)
 def test_msg_dense_ball_kernels_match_plain(cuda, widths, radius, k):
     """K4 and K6 (one kernel, equal outputs) against the plain version,
     atol 1e-4; the far centroid pools point 0's chain."""
