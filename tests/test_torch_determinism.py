@@ -18,6 +18,8 @@ backward sums each row serially): its gradients are held for the same
 bits run to run.
 """
 
+import os
+
 import flax.linen as fnn
 import jax
 import numpy as np
@@ -142,7 +144,12 @@ def test_collision_loss_backward_same_bits_on_cpu():
         loss_fn(*leaves).backward()
         return torch.cat([leaf.grad.ravel() for leaf in leaves])
 
-    runs = [grads(lambda a, b: tc.collision_loss(a, b, faces, adj)) for _ in range(10)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(4, os.cpu_count()))
+    try:
+        runs = [grads(lambda a, b: tc.collision_loss(a, b, faces, adj)) for _ in range(10)]
+    finally:
+        torch.set_num_threads(threads)
     assert runs[0].abs().max() > 0
     assert all(torch.equal(runs[0], r) for r in runs[1:])
 
